@@ -6,8 +6,9 @@
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
 then runs six phases, each printing one JSON line:
 
-  device         the card's name and power limit; ptxas register and
-                 shared-memory lines of both kernels
+  device         the card's name and power limit; ptxas entry, register,
+                 shared-memory and spill lines of both sources, and the
+                 tensor-core (HMMA/HGMMA) instructions per kernel in the SASS
   chacha20       RFC 8439 vectors through the kernel; kernel == plain version
                  bit for bit at the k-means wire (64 rows x 132 blocks) and
                  at a 64 MiB wire with random counters (wrapping at 2**32);
@@ -15,7 +16,10 @@ then runs six phases, each printing one JSON line:
   kmeans_assign  S=8 x 524,288 points, D=64, K=256: sums/counts against the
                  plain accumulate fed the kernel's assignments, assignments
                  against the plain version outside near-ties, two runs equal
-                 bit for bit; kernel, plain and cuBLAS distance-product times
+                 bit for bit; kernel, plain and cuBLAS distance-product times,
+                 the time of each kernel inside the call (assign, accumulate,
+                 CTA reduce; torch.profiler), and two bounds: FP32 CUDA cores
+                 (bound_ms) and 3xTF32 on the tensor cores (bound_tc_ms)
   kmeans_fit     secure k-means, 4,194,304 x 64 points, K=256, 8 virtual
                  shards, to the paper's threshold; kernel launches counted on
                  this run alone; plaintext fit identical bit for bit
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -47,6 +52,7 @@ N_POINTS, K, D, SHARDS = 4_194_304, 256, 64, 8
 MAX_ITER, ROUNDS_PER_DISPATCH = 200, 8
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_S = 67e12  # H100 SXM FP32 outside the tensor cores
+PEAK_TF32_S = 495e12  # H100 SXM TF32 tensor cores, dense
 # 32-bit integer ops: per SM and clock, 64 on the INT32 pipe (add, logic,
 # shifts) plus 64 integer multiply-adds on the FMA pipe; x 132 SMs x 1.98 GHz
 # boost (the same count gives the FP32 67 TFLOP/s: 128 lanes, FMA = 2 ops).
@@ -91,13 +97,41 @@ def phase_device(build):
     print(smi, flush=True)
     t0 = time.time()
     build.build("chacha20", "kmeans")
+    tensor_ops = {n: sass_mma(build.library_path(n)) for n in ("chacha20", "kmeans")}
+    if tensor_ops["kmeans"] is not None:
+        check(all(c > 0 for f, c in tensor_ops["kmeans"].items() if "kmeans_assign_kernel" in f),
+              "the k-means assign kernel has no tensor-core instruction")
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.time() - t0, 3),
           "ptxas": {n: [ln for ln in build.ptxas_info(n)
-                        if "registers" in ln or "smem" in ln or "spill" in ln]
-                    for n in ("chacha20", "kmeans")}})
+                        if "entry function" in ln or "registers" in ln or "smem" in ln
+                        or "spill" in ln]
+                    for n in ("chacha20", "kmeans")},
+          "sass_tensor_core_ops": tensor_ops})
     return smi
+
+
+def sass_mma(lib):
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in a built library,
+    read with the toolkit's cuobjdump; None where cuobjdump is missing."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+        tool = cand if os.path.exists(cand) else None
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return None
+    counts, fn = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in ln or "HGMMA" in ln):
+            counts[fn] += 1
+    return counts
 
 
 def phase_chacha(dev):
@@ -199,15 +233,33 @@ def phase_kmeans_assign(dev, points, centers):
     n_all = s * n
     ops_ = 2 * n_all * k * d + 4 * n_all * k + 4 * n_all * d
     bytes_ = n_all * d * 4 + n_all * 4 + n_all * 4 + k * d * 4 + s * k * (d + 1) * 4
+    # on the tensor cores: the three products of the 3xTF32 split
+    ops_tc = 3 * 2 * n_all * k * d
+    run = lambda: kk.kmeans_assign_cuda(points, centers, weights)  # noqa: E731
+
+    def five_runs():
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+
+    # device time of each kernel inside the one call, by torch.profiler
+    _, _, top = _profiled(five_runs)
+    kernel_ms = {name: sum(ms for op, ms in top if name in op) / 5 or None
+                 for name in ("kmeans_assign_kernel", "kmeans_accumulate_kernel",
+                              "kmeans_reduce_kernel")}
     res = {"phase": "kmeans_assign", "shards": s, "points_per_shard": n, "d": d, "k": k,
            "near_ties": ties, "mismatches": total_mism, "mismatches_outside_ties": mism, "deterministic": True,
            "max_abs_err": max_err,
-           "ms": cuda_ms(lambda: kk.kmeans_assign_cuda(points, centers, weights), 10),
+           "ms": cuda_ms(run, 10),
+           "kernel_ms": kernel_ms,
            "plain_ms": cuda_ms(lambda: kr.kmeans_assign_ref(points, centers, weights), 2, 1),
            "library_ms": library_ms, "library_call": "torch.matmul(points, centers.T) FP32, "
            "allow_tf32=False: the distance product alone",
            "bound_ms": 1e3 * max(ops_ / PEAK_F32_S, bytes_ / PEAK_BYTES_S),
-           "bound_by": "operations" if ops_ / PEAK_F32_S > bytes_ / PEAK_BYTES_S else "bytes"}
+           "bound_by": "operations" if ops_ / PEAK_F32_S > bytes_ / PEAK_BYTES_S else "bytes",
+           "bound_tc_ms": 1e3 * max(ops_tc / PEAK_TF32_S, bytes_ / PEAK_BYTES_S),
+           "bound_tc_by": "operations" if ops_tc / PEAK_TF32_S > bytes_ / PEAK_BYTES_S
+           else "bytes"}
     emit(res)
     return res
 
@@ -391,6 +443,8 @@ def main() -> int:
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
+         "bound_tc_ms": km["bound_tc_ms"], "bound_tc_by": km["bound_tc_by"],
+         "kernel_ms": km["kernel_ms"],
          "library_ms": km["library_ms"], "shape": "8 x 524288 x 64 points, K=256"},
     ]})
     print(smi, flush=True)

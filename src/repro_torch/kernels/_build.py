@@ -88,11 +88,13 @@ def build(*names: str) -> None:
 
 
 def ptxas_info(name: str) -> list[str]:
-    """The `ptxas info` lines (registers, shared memory, spills) of a build."""
+    """The `ptxas info` lines of a build (entry functions, registers, shared
+    memory) and the stack/spill line that follows each function's properties."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         return []
-    return [ln.strip() for ln in log.read_text().splitlines() if "ptxas info" in ln]
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "ptxas info" in ln or "spill" in ln]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,11 +1,12 @@
 """Wrapper of the Hopper k-means kernel (`csrc/kmeans.cu`).
 
 Replaces `repro/kernels/kmeans/kernel.py::kmeans_assign_tiles`. One call
-computes the fused assign + accumulate for S shards at once (points
-(S, n, D), one centre table) with two kernels issued by one C entry point:
-per-CTA partials, then a fixed-order reduction over CTAs. It counts as one
-launch in `launches`. The ragged last tile is masked inside the kernel, so
-no point is padded or copied.
+computes the assign + accumulate for S shards at once (points (S, n, D),
+one centre table) with three kernels issued by one C entry point: the
+assignments on the tensor cores (3xTF32), per-CTA partials in point order,
+then a fixed-order reduction over CTAs. It counts as one launch in
+`launches`. Ragged tiles are masked inside the kernels, so no point is
+padded or copied.
 """
 
 from __future__ import annotations
@@ -18,16 +19,22 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-THREADS = 512  # points per tile; must match csrc/kmeans.cu
+ASSIGN_TILE = 128  # points an assign CTA takes per step: two warpgroups x 64 (csrc/kmeans.cu)
+ACC_TILE = 256  # points per tile of the accumulate kernel (C_TILE)
 DMAX = 64
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-CTAS_PER_SM = 2  # target CTAs per SM over the whole grid (two waves)
 
 
-def smem_bytes(k: int, d: int) -> int:
-    """Dynamic shared memory stage 1 needs (mirrors `kmeans_smem_bytes`)."""
-    d4 = -(-d // 4)
-    return k * d4 * 16 + k * 4 + k * d * 4 + k * 4 + 3 * THREADS * 4
+def admits(k: int, d: int) -> bool:
+    """The (K, D) the entry point takes: 1 <= D <= 64 and
+    K * (16 * ceil(D / 4) + 4 * D + 8) + 6144 <= 232,448 (K <= 435 at D = 64).
+
+    This range is the entry point's contract. Inside it both kernels fit one
+    CTA's shared memory; the assign kernel streams the centre table in
+    chunks where the whole table does not fit beside its point ring.
+    """
+    return 1 <= d <= DMAX and k >= 1 and \
+        k * (16 * -(-d // 4) + 4 * d + 8) + 6144 <= SMEM_LIMIT
 
 
 def _lib():
@@ -35,17 +42,23 @@ def _lib():
     fn = lib.kmeans_assign_accumulate
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def grid_for(n_shards: int, n: int, n_sms: int) -> tuple[int, int]:
-    """(CTAs per shard, tiles per CTA) for n points per shard."""
-    tiles = max(1, -(-n // THREADS))
-    want = max(1, -(-CTAS_PER_SM * n_sms // n_shards))
+def grid_for(n_shards: int, n: int, n_sms: int) -> tuple[int, int, int]:
+    """(assign CTAs, accumulate CTAs per shard, accumulate tiles per CTA).
+
+    The assign kernel is persistent: one CTA per SM, at most one per tile of
+    the flattened S*n points. The accumulate kernel gives each shard an equal
+    share of the SMs (at least one CTA) and each CTA a contiguous run of tiles.
+    """
+    assign_ctas = max(1, min(n_sms, -(-n_shards * n // ASSIGN_TILE)))
+    tiles = max(1, -(-n // ACC_TILE))
+    want = max(1, n_sms // n_shards)
     per_cta = -(-tiles // min(want, tiles))
-    return -(-tiles // per_cta), per_cta
+    return assign_ctas, -(-tiles // per_cta), per_cta
 
 
 def _check(t, name, shape, dtype):
@@ -75,23 +88,24 @@ def kmeans_assign_cuda(points, centers, weights):
         raise ValueError("points, centers and weights must be on the same device")
     if not 1 <= d <= DMAX:
         raise ValueError(f"the k-means kernel takes 1 <= D <= {DMAX}, got D={d}")
-    if smem_bytes(k, d) > SMEM_LIMIT:
-        raise ValueError(f"K={k}, D={d} needs {smem_bytes(k, d)} bytes of shared "
-                         f"memory, more than the {SMEM_LIMIT} a CTA may use")
+    if not admits(k, d):
+        raise ValueError(f"the k-means kernel does not take K={k} at D={d} (K <= 435 at D=64; "
+                         "see kernel.admits)")
     dev = points.device
     assign = torch.empty((s, n), dtype=torch.int32, device=dev)
     sums = torch.empty((s, k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((s, k), dtype=torch.float32, device=dev)
     if n == 0:
         return assign, sums.zero_(), counts.zero_()
-    n_ctas, per_cta = grid_for(s, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assign_ctas, n_ctas, per_cta = grid_for(
+        s, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_sums = torch.empty((s, n_ctas, k, d), dtype=torch.float32, device=dev)
     part_counts = torch.empty((s, n_ctas, k), dtype=torch.float32, device=dev)
     fn = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(points.data_ptr(), centers.data_ptr(), weights.data_ptr(), assign.data_ptr(),
              part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-             s, n, d, k, n_ctas, per_cta, stream)
+             s, n, d, k, assign_ctas, n_ctas, per_cta, stream)
     _build.check(err, "kmeans_assign_accumulate launch")
     launches += 1
     return assign, sums, counts

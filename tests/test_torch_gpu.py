@@ -7,15 +7,19 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: ChaCha20 output exact; k-means assignments equal to the plain
-version's except at near-ties (at most 1 in 1,000 points here), sums within
-rtol/atol 1e-5 and counts within rtol 1e-6 of the plain accumulate fed the
-kernel's own assignments, and two runs identical bit for bit.
+version's except at near-ties (the two smallest plain d2 within 1e-5 of
+|x|^2 + |c|^2, the rule of chip_smoke.py; at most 1 in 1,000 points here
+for D > 1)
+and exactly equal on well-separated blobs, sums within rtol/atol 1e-5 and
+counts within rtol 1e-6 of the plain accumulate fed the kernel's own
+assignments, and two runs identical bit for bit in every case.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.kmeans import generate_points
 from repro_torch.kernels.chacha20 import ops as tops
 from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
 from repro_torch.kernels.kmeans.ops import kmeans_assign
@@ -49,24 +53,92 @@ def test_chacha20_kernel_matches_plain(cuda, rows, blocks):
         tops.chacha20_xor_words(args[0].reshape(-1), args[1], impl="torch")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("s,n,d,k", [(1, 77, 3, 7), (8, 1000, 4, 8), (2, 5000, 64, 256)])
-def test_kmeans_kernel_matches_plain(cuda, s, n, d, k):
+def _near_ties(pts, ctr):
+    """(plain assignments, near-tie mask) by the chip_smoke.py rule, FP32."""
+    x2 = torch.sum(pts * pts, dim=-1, keepdim=True)
+    c2 = torch.sum(ctr * ctr, dim=-1)
+    d2 = x2 + c2 - 2.0 * (pts @ ctr.T)
+    best = torch.argmin(d2, dim=-1)
+    if ctr.shape[0] < 2:
+        return best.to(torch.int32), torch.zeros_like(best, dtype=torch.bool)
+    top = torch.topk(d2, 2, dim=-1, largest=False).values
+    tie = (top[..., 1] - top[..., 0]) <= 1e-5 * (x2[..., 0] + c2[best])
+    return best.to(torch.int32), tie
+
+
+def _run_twice(pts, ctr, wt):
     from repro_torch.kernels.kmeans import kernel
 
+    before = kernel.launches
+    a, sums, counts = kmeans_assign(pts, ctr, wt)
+    a2, sums2, counts2 = kmeans_assign(pts, ctr, wt)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + (2 if pts.shape[-2] else 0)
+    assert torch.equal(a, a2) and torch.equal(sums, sums2) and torch.equal(counts, counts2)
+    return a, sums, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,n,d,k", [
+    (1, 77, 3, 7), (8, 1000, 4, 8), (2, 5000, 64, 256),
+    (3, 1001, 5, 10),     # D=5: unaligned rows (4-byte copies), K padded to 16
+    (2, 3000, 3, 300),    # D=3 with K past 256
+    (2, 2999, 64, 300),   # K=300 at D=64, n not a multiple of the tiles
+    (1, 4000, 64, 435),   # the largest K at D=64: centre table streamed in chunks
+    (2, 1500, 1, 2000),   # D=1, K=2000: one column, the table whole
+    (1, 700, 1, 8000),    # D=1, K=8000: one column, the table in chunks
+])
+def test_kmeans_kernel_matches_plain(cuda, s, n, d, k):
     rng = np.random.default_rng(n)
     pts = torch.as_tensor(rng.random((s, n, d)).astype(np.float32), device=cuda)
     ctr = torch.as_tensor(rng.random((k, d)).astype(np.float32), device=cuda)
     wt = torch.as_tensor((rng.random((s, n)) > 0.2).astype(np.float32), device=cuda)
-    before = kernel.launches
-    a, sums, counts = kmeans_assign(pts, ctr, wt)
-    a2, sums2, counts2 = kmeans_assign(pts, ctr, wt)
-    assert kernel.launches == before + 2
-    assert torch.equal(a, a2) and torch.equal(sums, sums2) and torch.equal(counts, counts2)
-    ra, _, _ = kmeans_assign_ref(pts, ctr, wt)
-    assert float((ra != a).float().mean()) <= 1e-3
+    a, sums, counts = _run_twice(pts, ctr, wt)
+    ra, tie = _near_ties(pts, ctr)
+    assert int(((ra != a) & ~tie).sum()) == 0
+    if d > 1:  # one column against thousands of centres is mostly near-ties
+        assert float((ra != a).float().mean()) <= 1e-3
     ps, pc = kmeans_accumulate_ref(pts, a, wt, k)
     torch.testing.assert_close(sums, ps, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(counts, pc, rtol=1e-6, atol=0.0)
     with pytest.raises(ValueError, match="impl='torch'"):
         kmeans_assign(pts, ctr, wt, impl="torch")
+
+
+@pytest.mark.gpu
+def test_kmeans_kernel_blobs_assign_exactly(cuda):
+    """Well-separated blobs: no near-ties, so the assignments are equal exactly."""
+    pts_np, true_c = generate_points(3 * 4099, 16, d=8, seed=5, spread=0.01)
+    pts = torch.as_tensor(pts_np.reshape(3, 4099, 8), device=cuda)
+    ctr = torch.as_tensor(true_c, device=cuda)
+    wt = torch.ones((3, 4099), dtype=torch.float32, device=cuda)
+    a, sums, counts = _run_twice(pts, ctr, wt)
+    ra, rs, rc = kmeans_assign_ref(pts, ctr, wt)
+    assert torch.equal(a, ra)
+    torch.testing.assert_close(sums, rs, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(counts, rc, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_kmeans_kernel_zero_weights_and_empty(cuda):
+    rng = np.random.default_rng(9)
+    pts = torch.as_tensor(rng.random((2, 333, 16)).astype(np.float32), device=cuda)
+    ctr = torch.as_tensor(rng.random((50, 16)).astype(np.float32), device=cuda)
+    a, sums, counts = _run_twice(pts, ctr, torch.zeros((2, 333), device=cuda))
+    ra, tie = _near_ties(pts, ctr)
+    assert int(((ra != a) & ~tie).sum()) == 0
+    assert not bool(sums.any()) and not bool(counts.any())
+
+    empty = torch.zeros((4, 0, 8), device=cuda)
+    a, sums, counts = _run_twice(empty, ctr[:, :8].contiguous(), torch.zeros((4, 0), device=cuda))
+    assert a.shape == (4, 0) and sums.shape == (4, 50, 8) and counts.shape == (4, 50)
+    assert not bool(sums.any()) and not bool(counts.any())
+
+
+@pytest.mark.gpu
+def test_kmeans_kernel_refuses_shapes_out_of_range(cuda):
+    pts = torch.zeros((1, 10, 64), device=cuda)
+    with pytest.raises(ValueError, match="does not take K=436"):
+        kmeans_assign(pts, torch.zeros((436, 64), device=cuda))
+    with pytest.raises(ValueError, match="D <= 64"):
+        kmeans_assign(torch.zeros((1, 10, 65), device=cuda), torch.zeros((4, 65), device=cuda))

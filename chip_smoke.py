@@ -4,15 +4,27 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs six phases, each printing one JSON line:
+then runs seven phases, each printing one JSON line:
 
   device         the card's name and power limit; ptxas entry, register,
-                 shared-memory and spill lines of both sources, and the
-                 tensor-core (HMMA/HGMMA) instructions per kernel in the SASS
+                 shared-memory and spill lines of both sources, the
+                 tensor-core (HMMA/HGMMA) instructions per kernel in the SASS,
+                 and each ChaCha20 kernel's SASS and SHFL instruction counts
   chacha20       RFC 8439 vectors through the kernel; kernel == plain version
                  bit for bit at the k-means wire (64 rows x 132 blocks) and
-                 at a 64 MiB wire with random counters (wrapping at 2**32);
-                 CUDA-event times
+                 at a 64 MiB wire with random counters (wrapping at 2**32),
+                 for both kernel designs (4 lanes per block, the default, and
+                 one thread per block); on the main path's packed wire, card
+                 == CPU plain version; each design's device time by
+                 torch.profiler (`kernel_ms`) and the wrapper-inclusive time
+                 by CUDA events (`call_ms`)
+  crypt_call     the shuffle's crypt call on the main path's wire: warm call
+                 time (host clock to a synchronise), device operations and
+                 synchronising calls per crypt (asserted: 1 and 0, and the two
+                 crypts of a round run under set_sync_debug_mode("error")),
+                 the kernel's device time inside the call at the wire and at
+                 64 MiB, and device operations and synchronising calls per
+                 executed secure and plaintext round
   kmeans_assign  S=8 x 524,288 points, D=64, K=256: sums/counts against the
                  plain accumulate fed the kernel's assignments, assignments
                  against the plain version outside near-ties, two runs equal
@@ -31,16 +43,26 @@ then runs six phases, each printing one JSON line:
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero. It needs a CUDA card and the
 repository's `src/` beside it.
+
+    python3 chip_smoke.py --measure [--src DIR]
+
+runs only the measurements that any version of the port answers through the
+same calls (crypt_call without its assertions, then kmeans_fit), against the
+`repro_torch` under DIR (default: this checkout's `src/`), so that an older
+checkout unpacked beside this one can be measured in the same call, in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -97,7 +119,9 @@ def phase_device(build):
     print(smi, flush=True)
     t0 = time.time()
     build.build("chacha20", "kmeans")
-    tensor_ops = {n: sass_mma(build.library_path(n)) for n in ("chacha20", "kmeans")}
+    sass = {n: sass_counts(build.library_path(n)) for n in ("chacha20", "kmeans")}
+    tensor_ops = {n: None if c is None else {f: v["tensor_core"] for f, v in c.items()}
+                  for n, c in sass.items()}
     if tensor_ops["kmeans"] is not None:
         check(all(c > 0 for f, c in tensor_ops["kmeans"].items() if "kmeans_assign_kernel" in f),
               "the k-means assign kernel has no tensor-core instruction")
@@ -108,13 +132,15 @@ def phase_device(build):
                         if "entry function" in ln or "registers" in ln or "smem" in ln
                         or "spill" in ln]
                     for n in ("chacha20", "kmeans")},
-          "sass_tensor_core_ops": tensor_ops})
+          "sass_tensor_core_ops": tensor_ops,
+          "sass_chacha20": sass["chacha20"]})
     return smi
 
 
-def sass_mma(lib):
-    """Tensor-core instructions (HMMA, HGMMA) per kernel in a built library,
-    read with the toolkit's cuobjdump; None where cuobjdump is missing."""
+def sass_counts(lib):
+    """Per kernel in a built library, read with the toolkit's cuobjdump: its
+    SASS instructions, tensor-core instructions (HMMA, HGMMA) and warp
+    shuffles (SHFL); None where cuobjdump is missing."""
     tool = shutil.which("cuobjdump")
     if tool is None:
         cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -128,15 +154,22 @@ def sass_mma(lib):
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in ln or "HGMMA" in ln):
-            counts[fn] += 1
+            counts[fn] = {"instructions": 0, "tensor_core": 0, "shfl": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if fn is None or m is None:
+            continue
+        op = m.group(1).split(".")[0]
+        counts[fn]["instructions"] += 1
+        counts[fn]["tensor_core"] += op in ("HMMA", "HGMMA")
+        counts[fn]["shfl"] += op == "SHFL"
     return counts
 
 
 def phase_chacha(dev):
     from repro_torch.crypto import chacha
     from repro_torch.kernels.chacha20 import kernel as ck, ops, ref as cr
+    from repro_torch.kernels.chacha20.table import block_table
 
     # RFC 8439 §2.3.2 block and §2.4.2 encryption, through the kernel
     rfc_block = np.array([0xE4E7F110, 0x15593BD1, 0x1FDD0F50, 0xC47120A3, 0xC7F4D1C7,
@@ -159,32 +192,88 @@ def phase_chacha(dev):
     rng = np.random.default_rng(1)
     out = {}
     for label, rows, blocks, reps in (("wire", 64, 132, 500), ("64MiB", 64, 16384, 50)):
-        x = u32(rng.integers(0, 2**32, (rows, blocks, 16)), dev)
-        state0 = u32(rng.integers(0, 2**32, 16), dev)
+        x = u32(rng.integers(0, 2**32, (rows, 16 * blocks)), dev)
+        j = np.arange(blocks)
+        base = rng.integers(0, 2**32, blocks)
+        mul = rng.integers(0, 2**32, blocks)
+        # counters near 2**32 with small strides wrap inside the buffer
+        base[: blocks // 2] = 2**32 - 1 - j[: blocks // 2]
+        mul[: blocks // 2] = j[: blocks // 2] % 5
+        table = block_table(base, mul, 16 * j, np.full(blocks, 16), dev)
         nid = u32(rng.integers(0, 2**32, rows), dev)
         crow = u32(rng.integers(0, 2**32, rows), dev)
-        base = u32(rng.integers(0, 2**32, blocks), dev)
-        mul = u32(rng.integers(0, 2**32, blocks), dev)
-        # counters near 2**32 with small strides wrap inside the buffer
-        base[: blocks // 2] = u32(2**32 - 1 - np.arange(blocks // 2), dev)
-        mul[: blocks // 2] = u32(np.arange(blocks // 2) % 5, dev)
-        args = (x, state0, nid, crow, base, mul)
-        y = ck.chacha20_xor_rows_cuda(*args)
-        y_ref = cr.chacha20_xor_rows_ref(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(y, y_ref), f"chacha20 kernel != plain at {label}")
+        key, nonce = rng.integers(0, 2**32, 8), rng.integers(0, 2**32, 3)
+        args = (x, table, key, nonce, int(rng.integers(0, 2**32)), nid, crow)
+        y_ref = cr.chacha20_xor_packed_ref(*args)
+        res = {"rows": rows, "blocks": blocks, "bit_exact": True}
+        for lanes in (4, 1):
+            y = ck.chacha20_xor_packed_cuda(*args, lanes=lanes)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y_ref), f"chacha20 kernel (lanes={lanes}) != plain at {label}")
+            res[f"kernel_ms_lanes{lanes}"] = kernel_device_ms(
+                lambda: ck.chacha20_xor_packed_cuda(*args, lanes=lanes), "chacha20_xor_packed", 20)
         n_blocks = rows * blocks
-        out[label] = {
-            "rows": rows, "blocks": blocks, "bit_exact": True,
-            "ms": cuda_ms(lambda: ck.chacha20_xor_rows_cuda(*args), reps),
-            "plain_ms": cuda_ms(lambda: cr.chacha20_xor_rows_ref(*args), 3 if blocks < 1000 else 1, 1),
-            "bound_ms": 1e3 * max(n_blocks * 128 / PEAK_BYTES_S,
+        nbytes = 2 * x.numel() * 4 + table.words.numel() * 4 + 2 * rows * 4
+        res.update({
+            "lanes": ck.lanes_for(rows * blocks, x.device),
+            "kernel_ms": res[f"kernel_ms_lanes{ck.lanes_for(rows * blocks, x.device)}"],
+            # the same bytes through a plain elementwise XOR: what moving them costs
+            "xor_copy_ms": kernel_device_ms(lambda: torch.bitwise_xor(x, 5), "", 20),
+            "call_ms": cuda_ms(lambda: ck.chacha20_xor_packed_cuda(*args), reps),
+            "plain_ms": cuda_ms(lambda: cr.chacha20_xor_packed_ref(*args),
+                                3 if blocks < 1000 else 1, 1),
+            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S,
                                   n_blocks * CHACHA_OPS_PER_BLOCK / PEAK_I32_S),
-            "bound_by": "operations" if CHACHA_OPS_PER_BLOCK / PEAK_I32_S > 128 / PEAK_BYTES_S
-            else "bytes",
-        }
+            "bound_by": "operations" if n_blocks * CHACHA_OPS_PER_BLOCK / PEAK_I32_S
+            > nbytes / PEAK_BYTES_S else "bytes",
+        })
+        out[label] = res
+
+    # the main path's packed wire (one k-means round's send buffers), card ==
+    # CPU plain version through the shuffle's own crypt
+    from repro_torch.core import shuffle
+    tree = _round_tree(np.random.default_rng(2))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        t = {"k": tree["k"].to(d), "v": {n: v.to(d) for n, v in tree["v"].items()}}
+        wire, layout, _ = shuffle._pack_wire_coalesced(t, lead=2)
+        ids = shuffle._exchange_ids(SHARDS, SHARDS, d)
+        got[d.type] = shuffle._crypt_wire_coalesced(wire.reshape(SHARDS * SHARDS, -1), layout,
+                                                    _secure_cfg(), ids[0], ids[1], 2**32 - 1).cpu()
+    check(torch.equal(got["cuda"], got["cpu"]), "main-path packed wire: card != plain")
+    out["main_wire"] = {"rows": SHARDS * SHARDS, "words": got["cpu"].shape[1],
+                        "blocks": layout.total_blocks, "bit_exact": True}
     emit({"phase": "chacha20", "rfc8439": True, **out})
     return out
+
+
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Mean device ms per call of the kernels whose name holds `name`, over
+    `reps` warm calls, by torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+
+    def runs():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    events = _device_events(runs)[1]
+    hits = [ms for op, ms in events if name in op]
+    # the profiler now and then misses one launch of a run; the mean is
+    # over the launches it saw
+    check(len(hits) >= reps - 2, f"profiler saw {len(hits)} launches of {name}, not {reps}")
+    return sum(hits) / len(hits)
+
+
+def _round_tree(rng, rows: int = SHARDS, n_shards: int = SHARDS):
+    """One k-means round's send buffers: keys and per-centre partials, as
+    bucket_pack lays them out (S, R, ceil(K / R), ...)."""
+    cap = -(-K // rows)
+    keys = rng.integers(-1, K, (n_shards, rows, cap)).astype(np.int32)
+    return {"k": torch.as_tensor(keys),
+            "v": {"c": torch.as_tensor(rng.random((n_shards, rows, cap)).astype(np.float32)),
+                  "s": torch.as_tensor(rng.random((n_shards, rows, cap, D)).astype(np.float32))}}
 
 
 def phase_kmeans_assign(dev, points, centers):
@@ -271,6 +360,38 @@ def _secure_cfg():
                          counter0=7)
 
 
+def _device_events(fn):
+    """Run fn under torch.profiler; (result, [[name, device ms]] of every
+    kernel, copy and fill the card ran, in order)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a first kernel the counts leave out: the trace has been seen to miss
+        # the first launch of a session
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        out = fn()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+    return out, [[e.name, e.time_range.elapsed_us() / 1e3] for e in events]
+
+
+def _count_syncs(fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("warn"); (result, number
+    of synchronising calls torch reported)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in got)
+
+
 def _profiled(fn):
     """Run fn under torch.profiler; (result, device busy ms, top ops by device ms).
 
@@ -291,6 +412,95 @@ def _profiled(fn):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return out, busy_us / 1e3, [[name[:80], us / 1e3] for name, us in top]
+
+
+def _crypt_ids(shuffle, dev):
+    """The (send_ids, send_rows) a k-means round's sender crypt is given:
+    the port's cached int32 ids, or, in a port that has none, the int64
+    aranges its keyed_all_to_all built per call."""
+    if hasattr(shuffle, "_exchange_ids"):
+        return shuffle._exchange_ids(SHARDS, SHARDS, dev)[:2]
+    shard = torch.arange(SHARDS, device=dev)[:, None].expand(SHARDS, SHARDS).reshape(-1)
+    row = torch.arange(SHARDS, device=dev)[None, :].expand(SHARDS, SHARDS).reshape(-1)
+    return shard, row
+
+
+def phase_crypt_call(dev, points, strict: bool = True):
+    """The crypt call of the shuffle and a round around it, through calls
+    every version of the port has. `strict` asserts one device operation and
+    no synchronising call per crypt (this version's contract)."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver, shuffle
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
+
+    cfg = _secure_cfg()
+    res = {"phase": "crypt_call"}
+    for label, tree in (("wire", _round_tree(np.random.default_rng(5))),
+                        ("64MiB", {"x": torch.zeros((SHARDS, SHARDS, 262144), dtype=torch.int32)})):
+        tree = {k: (v.to(dev) if torch.is_tensor(v) else {n: x.to(dev) for n, x in v.items()})
+                for k, v in tree.items()}
+        wire, layout, _ = shuffle._pack_wire_coalesced(tree, lead=2)
+        flat = wire.reshape(SHARDS * SHARDS, -1)
+        ids = _crypt_ids(shuffle, dev)
+
+        def crypt():
+            return shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], 3)
+
+        res[f"kernel_ms_{label}"] = kernel_device_ms(crypt, "chacha20", 20)
+        if label != "wire":
+            continue
+        res["wire_words"] = int(flat.shape[1])
+        crypt()
+        torch.cuda.synchronize()
+        reps = 200
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            crypt()
+        torch.cuda.synchronize()
+        res["call_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+        res["call_reps"] = reps
+        _, ops_ = _device_events(lambda: (crypt(), torch.cuda.synchronize()))
+        res["device_ops_per_crypt"] = len(ops_)
+        res["device_ops_names"] = sorted({op[:60] for op, _ in ops_})
+        res["syncs_per_crypt"] = _count_syncs(crypt)[1]
+        if strict:
+            check(len(ops_) == 1 and "chacha20" in ops_[0][0],
+                  f"a warm crypt ran {len(ops_)} device operations: {res['device_ops_names']}")
+            check(res["syncs_per_crypt"] == 0, f"a warm crypt synchronised "
+                  f"{res['syncs_per_crypt']} times")
+            send_ids, send_rows, recv_ids, recv_rows = shuffle._exchange_ids(SHARDS, SHARDS, dev)
+            mesh = VirtualMesh(SHARDS, dev)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:  # the two crypts of one secure round
+                ct = shuffle._crypt_wire_coalesced(flat, layout, cfg, send_ids, send_rows, 3)
+                moved = mesh.all_to_all(ct.reshape(SHARDS, SHARDS, -1)).reshape(flat.shape)
+                back = shuffle._crypt_wire_coalesced(moved, layout, cfg, recv_ids, recv_rows, 3)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(torch.equal(back, mesh.all_to_all(wire).reshape(flat.shape)),
+                  "the round's two crypts do not invert")
+            res["round_crypts_under_sync_error_mode"] = True
+
+    # one executed round as the driver runs it (map, shuffle, reduce, then
+    # the halt read), secure and plaintext
+    mesh = VirtualMesh(SHARDS, dev)
+    spec = make_kmeans_iterative_spec(K, mesh, threshold=paper_threshold(points))
+    weights = torch.ones((points.shape[0],), dtype=torch.float32, device=dev)
+    for name, sec in (("secure", cfg), ("plain", None)):
+        sec, state, inputs = driver._prepare(spec, {"p": points, "w": weights},
+                                             points[:K].contiguous(), mesh, sec, None, None)
+
+        def one_round():
+            st, aux, _ = driver._round(spec, mesh, inputs, state, 0, sec, None, {})
+            return bool(spec.halt_fn(st, aux, 0))
+
+        one_round()
+        _, ops_ = _device_events(one_round)
+        res[f"device_ops_per_{name}_round"] = len(ops_)
+        res[f"syncs_per_{name}_round"] = _count_syncs(one_round)[1]
+    emit(res)
+    return res
 
 
 def phase_kmeans_fit(dev, points):
@@ -400,18 +610,32 @@ def phase_parity_small(dev):
     return res
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--measure", action="store_true",
+                    help="run only crypt_call (no assertions) and kmeans_fit")
+    ap.add_argument("--src", default=SRC, help="directory holding the repro_torch to run")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        print(f"chip_smoke: the port's sources are missing ({SRC}/repro_torch)", file=sys.stderr)
+    src = os.path.abspath(args.src)
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: the port's sources are missing ({src}/repro_torch)", file=sys.stderr)
         return 1
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, src)
     from repro_torch.core.kmeans import generate_points
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
+    if args.measure:
+        _build.build("chacha20", "kmeans")
+        points = torch.from_numpy(generate_points(N_POINTS, K, d=D, seed=0)[0]).to(dev)
+        emit({"phase": "measure", "src": src})
+        phase_crypt_call(dev, points, strict=False)
+        phase_kmeans_fit(dev, points)
+        return 0
+
     smi = phase_device(_build)
     cha = phase_chacha(dev)
 
@@ -419,22 +643,30 @@ def main() -> int:
     points = torch.from_numpy(pts_np).to(dev)
     del pts_np
     km = phase_kmeans_assign(dev, points.reshape(SHARDS, -1, D), points[:K].contiguous())
+    crypt = phase_crypt_call(dev, points)
     fit = phase_kmeans_fit(dev, points)
     phase_parity_small(dev)
 
     rounds = fit["rounds_executed"]
+    wire, big = cha["wire"], cha["64MiB"]
     emit({"kernels": [
-        {"name": "chacha20_xor_rows", "route": "cuda",
+        {"name": "chacha20_xor_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/chacha20.cu",
          "replaces": "src/repro/kernels/chacha20/kernel.py:180",
          "replaces_function": "chacha20_xor_row_lanes",
          "launches": fit["launches"]["chacha20"],
          "launches_per_round": fit["launches"]["chacha20"] / rounds,
-         "max_abs_err": 0, "ms": cha["wire"]["ms"], "plain_ms": cha["wire"]["plain_ms"],
-         "bound_ms": cha["wire"]["bound_ms"], "bound_by": cha["wire"]["bound_by"],
+         "max_abs_err": 0, "ms": wire["kernel_ms"], "call_ms": wire["call_ms"],
+         "crypt_call_ms": crypt["call_ms"], "plain_ms": wire["plain_ms"],
+         "bound_ms": wire["bound_ms"], "bound_by": wire["bound_by"],
          "library_ms": None, "shape": "64 rows x 132 blocks",
-         "ms_64MiB": cha["64MiB"]["ms"], "bound_ms_64MiB": cha["64MiB"]["bound_ms"],
-         "plain_ms_64MiB": cha["64MiB"]["plain_ms"]},
+         "lanes": wire["lanes"], "kernel_ms_lanes4": wire["kernel_ms_lanes4"],
+         "kernel_ms_lanes1": wire["kernel_ms_lanes1"],
+         "ms_64MiB": big["kernel_ms"], "lanes_64MiB": big["lanes"],
+         "kernel_ms_lanes4_64MiB": big["kernel_ms_lanes4"],
+         "kernel_ms_lanes1_64MiB": big["kernel_ms_lanes1"],
+         "bound_ms_64MiB": big["bound_ms"], "plain_ms_64MiB": big["plain_ms"],
+         "xor_copy_ms_64MiB": big["xor_copy_ms"]},
         {"name": "kmeans_assign", "route": "cuda",
          "source": "src/repro_torch/csrc/kmeans.cu",
          "replaces": "src/repro/kernels/kmeans/kernel.py:84",

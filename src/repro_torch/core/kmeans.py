@@ -163,7 +163,8 @@ def make_kmeans_iterative_spec(k: int, mesh, *, impl: str = "auto", n_rounds: in
         thr = np.float32(threshold)
 
         def halt_fn(centers, aux, r):
-            return aux["shift"] < torch.tensor(thr, device=aux["shift"].device)
+            # a host float, compared in float32: no copy to the card per round
+            return aux["shift"] < float(thr)
 
     return IterativeSpec(map_fn=map_fn, reduce_fn=reduce_fn, hash_fn=identity_hash,
                          capacity=-(-k // s), n_rounds=n_rounds, halt_fn=halt_fn,

@@ -15,15 +15,19 @@ bit for bit:
 
 Coalesced wire (default): the whole pytree travels as ONE packed
 (R, payload_words) word wire per shard, with leaves concatenated at static
-word offsets and zero pad words. The keystream is derived in the
-block-aligned virtual layout by XOR with zeros and sliced onto the packed
-wire (`_packed_keystream`), so each leaf region keeps the per-leaf
-(key, nonce, counter) assignment. On the virtual mesh one keystream launch
-covers all S·R wire rows of a side: sender rows use nonce id = the shard and
-counter row = the destination; receiver rows use nonce id = the source and
-counter row = the shard. A secure round is therefore 2 ChaCha launches with
-the transpose between them. The per-leaf wire is kept as the oracle
-(`SecureShuffleConfig.coalesce=False`).
+word offsets and zero pad words. The counter space is the block-aligned
+per-leaf one; a per-block table {ctr_base, ctr_rowmul, packed_start,
+n_valid}, built once per layout and kept on the device (`_layout_table`),
+tells the kernel where each block's keystream lands on the packed wire, so
+the keystream is XORed straight onto the packed words and each leaf region
+keeps the per-leaf (key, nonce, counter) assignment. On the virtual mesh one
+keystream launch covers all S·R wire rows of a side: sender rows use nonce
+id = the shard and counter row = the destination; receiver rows use nonce id
+= the source and counter row = the shard (`_exchange_ids`, built once per
+(S, R, device)). A secure round is therefore 2 ChaCha launches with the
+transpose between them, and a crypt on the card is one allocation and one
+launch: no host-to-device copy and no synchronisation. The per-leaf wire is
+kept as the oracle (`SecureShuffleConfig.coalesce=False`).
 
 The wire is 32-bit words held as int32 (u32 bit patterns): ciphertext never
 travels as floats, which could quiet NaN payloads.
@@ -31,6 +35,7 @@ travels as floats, which could quiet NaN payloads.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -38,13 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.crypto import ctr as _ctr
-from repro_torch.crypto.chacha import MASK32, as_u32, u32_mul
+from repro_torch.crypto.chacha import CONSTANT_WORDS, MASK32, as_u32, u32_mul
 from repro_torch.crypto.ctr import WORD, words_for
-from repro_torch.kernels.chacha20.ops import (
-    chacha20_xor_rows,
-    chacha20_xor_rows_coalesced,
-    make_state0,
-)
+from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_rows
+from repro_torch.kernels.chacha20.table import BlockTable, block_table
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -158,7 +160,8 @@ def _round_nonce(cfg: SecureShuffleConfig, round_id) -> np.ndarray:
 
 def _crypt_rows(cfg: SecureShuffleConfig, words, nonce_ids, ctr_starts, round_id):
     """XOR an (n_rows, n_words) wire with per-row keystreams (one launch)."""
-    state0 = make_state0(cfg.key_words, _round_nonce(cfg, round_id), 0, device=words.device)
+    state0 = np.concatenate([CONSTANT_WORDS, np.asarray(cfg.key_words, np.uint32), [0],
+                             _round_nonce(cfg, round_id)]).astype(np.uint32)
     return chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, impl=cfg.impl)
 
 
@@ -205,24 +208,22 @@ def _crypt_wires(wires, meta, cfg, nonce_ids, ctr_rows, round_id=None, r=None):
 class _WireLayout:
     """Static unpack/counter metadata for a coalesced (R, payload_words) wire.
 
-    leaves:      per-leaf (row shape, dtype, narrow-pad, word_start, n_words,
-                 blocks, ks_start): word_start on the PACKED wire, ks_start =
-                 16·Σ preceding blocks in the block-aligned keystream layout.
-    ctr_base:    (total_blocks,) u32 -- leaf counter offset (Σ preceding
-                 blocks·R) + intra-leaf block index; counter0 is added at
-                 crypt time.
-    ctr_rowmul:  (total_blocks,) u32 -- the owning leaf's blocks per row.
+    leaves:  per-leaf (row shape, dtype, narrow-pad, word_start, n_words,
+             blocks): word_start on the PACKED wire, blocks = the leaf's
+             keystream blocks per row.
+    rows:    R, the wire rows of one shard (the counter stride of a leaf).
+
+    The counters and the keystream's place on the wire follow from these
+    alone (`_layout_table`).
     """
 
     leaves: tuple
-    ctr_base: Any
-    ctr_rowmul: Any
-    total_blocks: int
+    rows: int
 
     @property
-    def total_words(self) -> int:
-        """Words of the block-aligned KEYSTREAM layout (>= payload_words)."""
-        return self.total_blocks * 16
+    def total_blocks(self) -> int:
+        """Keystream blocks per wire row (Σ leaf blocks)."""
+        return sum(m[5] for m in self.leaves)
 
     @property
     def payload_words(self) -> int:
@@ -238,46 +239,49 @@ def _pack_wire_coalesced(tree, lead: int = 1):
     """
     leaves, treedef = tree_flatten(tree)
     lead_shape = tuple(leaves[0].shape[:lead])
-    r = lead_shape[-1]
-    segs, meta, base_parts, mul_parts = [], [], [], []
-    word_off = ctr_off = ks_off = 0
+    segs, meta = [], []
+    word_off = 0
     for leaf in leaves:
         row_shape = tuple(leaf.shape[lead:])
         words = _ctr._to_words(leaf, lead)[0]
         n_words = words.shape[-1]
-        blocks = -(-n_words // 16)
         segs.append(words)
         meta.append((row_shape, leaf.dtype, _ctr.pad_for(row_shape, leaf.dtype),
-                     word_off, n_words, blocks, ks_off))
-        base_parts.append((ctr_off + np.arange(blocks, dtype=np.uint64)) & MASK32)
-        mul_parts.append(np.full((blocks,), blocks, np.uint64))
+                     word_off, n_words, -(-n_words // 16)))
         word_off += n_words
-        ctr_off += blocks * r
-        ks_off += blocks * 16
     wire = torch.cat(segs, dim=-1) if segs else torch.zeros(
         lead_shape + (0,), dtype=WORD, device=leaves[0].device)
-    layout = _WireLayout(
-        leaves=tuple(meta),
-        ctr_base=np.concatenate(base_parts).astype(np.uint32) if base_parts
-        else np.zeros((0,), np.uint32),
-        ctr_rowmul=np.concatenate(mul_parts).astype(np.uint32) if mul_parts
-        else np.zeros((0,), np.uint32),
-        total_blocks=ks_off // 16,
-    )
-    return wire, layout, treedef
+    return wire, _WireLayout(leaves=tuple(meta), rows=lead_shape[-1]), treedef
 
 
 def _unpack_wire_coalesced(wire, layout: _WireLayout, treedef, lead: int = 1):
     leaves = [_ctr._from_words(wire[..., start:start + n_words], shape, dtype, pad, lead)
-              for shape, dtype, pad, start, n_words, _b, _ks in layout.leaves]
+              for shape, dtype, pad, start, n_words, _b in layout.leaves]
     return tree_unflatten(treedef, leaves)
 
 
-def _packed_keystream(ks_aligned, layout: _WireLayout):
-    """Slice the packed wire's keystream out of the block-aligned keystream:
-    each leaf's first n_words at its aligned ks_start, concatenated."""
-    segs = [ks_aligned[..., m[6]:m[6] + m[4]] for m in layout.leaves]
-    return torch.cat(segs, dim=-1) if segs else ks_aligned[..., :0]
+@functools.lru_cache(maxsize=64)
+def _layout_table(layout: _WireLayout, device) -> BlockTable:
+    """The coalesced wire's (total_blocks, 4) block table on `device`.
+
+    Block b of a leaf of n_words words per row, after leaves holding
+    `blocks_before` blocks: ctr_base = R·blocks_before + b (counter0 is
+    added at crypt time), ctr_rowmul = the leaf's blocks per row,
+    packed_start = the leaf's word_start + 16·b, n_valid = min(16, n_words -
+    16·b): the per-leaf counter space, block-aligned per leaf, placed on the
+    packed words. It depends only on the leaves' row shapes and dtypes and on
+    R, so it is built once per (layout, device) and kept on the device.
+    """
+    base, mul, start, valid = [], [], [], []
+    ctr_off = 0
+    for _shape, _dtype, _pad, word_start, n_words, blocks in layout.leaves:
+        b = np.arange(blocks, dtype=np.int64)
+        base.append(ctr_off + b)
+        mul.append(np.full(blocks, blocks, np.int64))
+        start.append(word_start + 16 * b)
+        valid.append(np.minimum(16, n_words - 16 * b))
+        ctr_off += blocks * layout.rows
+    return block_table(*(np.concatenate(c) for c in (base, mul, start, valid)), device)
 
 
 def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
@@ -285,18 +289,17 @@ def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
     """XOR an (n_rows, payload_words) packed wire with its keystream -- ONE launch.
 
     Block j of row i uses counter counter0 + ctr_base[j] + ctr_rowmul[j] ·
-    ctr_rows[i] and nonce word 0 XOR nonce_ids[i]; the keystream is derived
-    block-aligned (XOR with zeros) and sliced onto the packed wire.
+    ctr_rows[i] and nonce word 0 XOR nonce_ids[i]; the kernel XORs each
+    block's words straight onto the packed wire (`_layout_table` places
+    them). With a warm layout and int32 ids already on the card (as
+    `keyed_all_to_all` passes them) the call is one allocation and one
+    launch.
     """
     if layout.total_blocks == 0:
         return wire
-    dev = wire.device
-    state0 = make_state0(cfg.key_words, _round_nonce(cfg, round_id), 0, device=dev)
-    ctr_base = (layout.ctr_base.astype(np.uint64) + int(cfg.counter0)) & MASK32
-    zeros = torch.zeros((wire.shape[0], layout.total_words), dtype=WORD, device=dev)
-    ks = chacha20_xor_rows_coalesced(zeros, state0, nonce_ids, ctr_rows, ctr_base,
-                                     layout.ctr_rowmul, impl=cfg.impl)
-    return wire ^ _packed_keystream(ks, layout)
+    table = _layout_table(layout, wire.device)
+    return chacha20_xor_packed(wire, table, cfg.key_words, _round_nonce(cfg, round_id),
+                               cfg.counter0, nonce_ids, ctr_rows, impl=cfg.impl)
 
 
 # --- wire accounting -------------------------------------------------------------
@@ -353,6 +356,18 @@ class record_wire_bytes:
 # --- the exchange ------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=16)
+def _exchange_ids(s: int, r: int, device):
+    """(send_ids, send_rows, recv_ids, recv_rows): (S·R,) int32 on `device`.
+
+    Sender row (shard, dest): nonce id = shard, counter row = dest; receiver
+    row (shard, src): nonce id = src, counter row = shard.
+    """
+    shard = torch.arange(s, dtype=torch.int32, device=device).repeat_interleave(r)
+    row = torch.arange(r, dtype=torch.int32, device=device).repeat(s)
+    return shard, row, row, shard
+
+
 def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
                      round_index=None, coalesce=None):
     """all_to_all every (S, R, C, ...) leaf: row i of shard j came from shard i.
@@ -380,12 +395,7 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
                   collectives=len(leaves))
         return tree_map(mesh.all_to_all, tree)
 
-    dev = leaves[0].device
-    shard = torch.arange(s, device=dev)[:, None].expand(s, r).reshape(-1)
-    row = torch.arange(r, device=dev)[None, :].expand(s, r).reshape(-1)
-    # sender (shard, row=dest): nonce id = shard, counter row = dest;
-    # receiver (shard, row=src): nonce id = src, counter row = shard
-    send_ids, send_rows, recv_ids, recv_rows = shard, row, row, shard
+    send_ids, send_rows, recv_ids, recv_rows = _exchange_ids(s, r, leaves[0].device)
 
     if resolve_coalesce(secure.coalesce):
         wire, layout, treedef = _pack_wire_coalesced(tree, lead=2)

@@ -1,11 +1,17 @@
 """Layout wrappers over the one ChaCha20 kernel, and device dispatch.
 
 Counterpart of `repro/kernels/chacha20/ops.py`. Every entry point lowers onto
-the same per-(row, block) keystream XOR: a CUDA tensor launches the Hopper
-kernel (`kernel.chacha20_xor_rows_cuda`), a CPU tensor runs its plain version
-(`ref.chacha20_xor_rows_ref`). The only pad is the one that completes a
-partial last block of a flat or per-row stream; it stays inside the wrapper
-and never reaches a wire.
+the same keystream XOR of a (n_rows, row_words) word wire placed by a
+per-block table {ctr_base, ctr_rowmul, packed_start, n_valid}: a CUDA tensor
+launches the Hopper kernel (`kernel.chacha20_xor_packed_cuda`), a CPU tensor
+runs its plain version (`ref.chacha20_xor_packed_ref`). The row-aligned entry
+points use the table {j, 1, 16j, min(16, n - 16j)}, so a partial last block
+is cut in the kernel and nothing is padded; the coalesced shuffle builds its
+table once per wire layout (`repro_torch.core.shuffle`).
+
+Key, nonce and counter0 are host values, passed to the kernel by value. The
+entry points that take a 16-word `state0` read it on the host: a state0 on
+the card costs one copy back (they are not on the shuffle's path).
 
 `impl` keeps its name for parity with the JAX package: 'auto' lets the
 tensor's device decide; 'torch' asks for the plain version and is refused
@@ -14,19 +20,49 @@ for a CUDA tensor, where the kernel is the only route.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.crypto import ctr as _ctr
 from repro_torch.crypto.chacha import CONSTANT_WORDS, as_u32, to_word_bits
 from repro_torch.device import resolve_device
 from repro_torch.kernels import uses_kernel
-from repro_torch.kernels.chacha20.kernel import chacha20_xor_rows_cuda
-from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda
+from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
+from repro_torch.kernels.chacha20.table import block_table, host_u32, row_table
 
 
-def _words(v, device) -> torch.Tensor:
-    """u32 values (array, tensor or scalar) -> contiguous int32 bits on device."""
+def ids_on(v, device) -> torch.Tensor:
+    """Per-row ids as contiguous int32 bits on `device`; an int32 tensor
+    already there passes through without a device operation."""
+    if isinstance(v, torch.Tensor) and v.dtype == torch.int32 and v.device == device \
+            and v.dim() == 1 and v.is_contiguous():
+        return v
     return to_word_bits(as_u32(v, device)).reshape(-1).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _zero_id(device) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, ctr_rows,
+                        *, impl: str = "auto"):
+    """XOR an (n_rows, row_words) int32 wire with the keystream its table places.
+
+    Block j of row i uses nonce word 0 XOR nonce_ids[i] and counter counter0
+    + ctr_base[j] + ctr_rowmul[j] · ctr_rows[i] (mod 2**32) and XORs its first
+    n_valid[j] words onto words packed_start[j]... of row i.
+    """
+    dev = x.device
+    nonce_ids, ctr_rows = ids_on(nonce_ids, dev), ids_on(ctr_rows, dev)
+    if uses_kernel(impl, x):
+        return chacha20_xor_packed_cuda(x.contiguous(), table, key_words, nonce_words,
+                                        counter0, nonce_ids, ctr_rows)
+    return chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0,
+                                   nonce_ids, ctr_rows)
 
 
 def make_state0(key_words, nonce_words, counter0, device=None) -> torch.Tensor:
@@ -39,23 +75,10 @@ def make_state0(key_words, nonce_words, counter0, device=None) -> torch.Tensor:
     return to_word_bits(torch.cat(parts))
 
 
-def _xor_rows(x, state0, nonce_ids, ctr_rows, ctr_base, ctr_rowmul, impl):
-    """Dispatch one (n_rows, n_blocks, 16) buffer to the kernel or the plain version."""
-    dev = x.device
-    args = [_words(v, dev) for v in (state0, nonce_ids, ctr_rows, ctr_base, ctr_rowmul)]
-    if uses_kernel(impl, x):
-        return chacha20_xor_rows_cuda(x.contiguous(), *args)
-    return chacha20_xor_rows_ref(x, *args)
-
-
-def _block_rows(words: torch.Tensor):
-    """(R, n) words -> (R, ceil(n/16), 16), zero-padding the last block."""
-    r, n = words.shape
-    n_blocks = -(-n // 16)
-    pad = n_blocks * 16 - n
-    if pad:
-        words = torch.cat([words, words.new_zeros((r, pad))], dim=1)
-    return words.reshape(r, n_blocks, 16), n_blocks
+def _split_state0(state0):
+    """(key (8,), nonce (3,), counter) host words of a 16-word state0."""
+    s = host_u32(state0).reshape(16)
+    return s[4:12], s[13:16], int(s[12])
 
 
 def chacha20_xor_words(words, state0, *, impl: str = "auto"):
@@ -63,17 +86,18 @@ def chacha20_xor_words(words, state0, *, impl: str = "auto"):
 
     Block i draws counter state0[12] + i (one row, contiguous counters).
     """
+    key, nonce, counter0 = _split_state0(state0)
+    return _xor_flat(words, key, nonce, counter0, impl)
+
+
+def _xor_flat(words, key, nonce, counter0, impl):
     n = words.shape[0]
-    x, n_blocks = _block_rows(words.reshape(1, n))
-    if n_blocks == 0:
+    if n == 0:
         return words
     dev = words.device
-    s0 = _words(state0, dev)
-    y = _xor_rows(x, s0, torch.zeros(1, dtype=torch.int32, device=dev), s0[12:13],
-                  torch.arange(n_blocks, device=dev), torch.ones(n_blocks, device=dev,
-                                                                 dtype=torch.int64),
-                  impl)
-    return y.reshape(-1)[:n]
+    zero = _zero_id(dev)
+    return chacha20_xor_packed(words.reshape(1, n), row_table(n, dev), key, nonce, counter0,
+                               zero, zero, impl=impl).reshape(n)
 
 
 def chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, *, impl: str = "auto"):
@@ -83,13 +107,11 @@ def chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, *, impl: str = "auto
     ctr_starts[i] (absolute; state0[12] is ignored) -- the per-leaf wire.
     """
     r, n = words.shape
-    x, n_blocks = _block_rows(words)
-    if n_blocks == 0 or r == 0:
+    if n == 0 or r == 0:
         return words
-    dev = words.device
-    y = _xor_rows(x, state0, nonce_ids, ctr_starts, torch.arange(n_blocks, device=dev),
-                  torch.ones(n_blocks, device=dev, dtype=torch.int64), impl)
-    return y.reshape(r, -1)[:, :n]
+    key, nonce, _ = _split_state0(state0)
+    return chacha20_xor_packed(words, row_table(n, words.device), key, nonce, 0, nonce_ids,
+                               ctr_starts, impl=impl)
 
 
 def chacha20_xor_rows_coalesced(words, state0, nonce_ids, ctr_rows, ctr_base,
@@ -105,14 +127,14 @@ def chacha20_xor_rows_coalesced(words, state0, nonce_ids, ctr_rows, ctr_base,
         raise ValueError(f"coalesced wire must be block-aligned, got n_words={n}")
     if n == 0 or r == 0:
         return words
-    y = _xor_rows(words.reshape(r, n // 16, 16), state0, nonce_ids, ctr_rows,
-                  ctr_base, ctr_rowmul, impl)
-    return y.reshape(r, n)
+    key, nonce, _ = _split_state0(state0)
+    j = np.arange(n // 16, dtype=np.int64)
+    table = block_table(ctr_base, ctr_rowmul, 16 * j, np.full_like(j, 16), words.device)
+    return chacha20_xor_packed(words, table, key, nonce, 0, nonce_ids, ctr_rows, impl=impl)
 
 
 def ctr_crypt_array(x, key_words, nonce_words, counter0=0, *, impl: str = "auto"):
     """Encrypt/decrypt an arbitrary-dtype tensor through the kernel (XOR stream)."""
     words, pad = _ctr._to_words(x)
-    state0 = make_state0(key_words, nonce_words, counter0, device=x.device)
-    out = chacha20_xor_words(words, state0, impl=impl)
+    out = _xor_flat(words, host_u32(key_words), host_u32(nonce_words), int(counter0), impl)
     return _ctr._from_words(out, x.shape, x.dtype, pad)

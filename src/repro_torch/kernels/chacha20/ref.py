@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the ChaCha20 keystream-XOR kernel.
+"""Plain PyTorch versions of the ChaCha20 keystream-XOR kernel.
 
 Computes in int64 with 32-bit masks (see `repro_torch.crypto.chacha`), so
 it runs on the CPU build of torch; the CPU tests and `chip_smoke.py` hold
@@ -7,7 +7,11 @@ the CUDA kernel to it bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.crypto.chacha import (
+    CONSTANT_WORDS,
     MASK32,
     as_u32,
     chacha20_block_from_state,
@@ -37,3 +41,32 @@ def chacha20_xor_rows_ref(x, state0, nonce_ids, ctr_rows, ctr_base, ctr_rowmul):
     init[13] = s0[13:14] ^ nid
     ks = chacha20_block_from_state(init)[..., 0, :]  # (n_rows, n_blocks, 16)
     return x ^ to_word_bits(ks)
+
+
+def chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0, nonce_ids,
+                            ctr_rows):
+    """XOR an (n_rows, row_words) packed wire with its keystream.
+
+    `table` is a `table.BlockTable` of (n_blocks, 4) u32 {ctr_base,
+    ctr_rowmul, packed_start, n_valid}: block j of row i draws keystream from nonce word 0 XOR
+    nonce_ids[i] and counter counter0 + ctr_base[j] + ctr_rowmul[j] *
+    ctr_rows[i] (mod 2**32), and its first n_valid[j] words land on the
+    packed words packed_start[j] ... Computed as the aligned keystream of
+    `chacha20_xor_rows_ref` (XOR with zeros), sliced onto the packed words and
+    XORed: the composition the fused kernel replaces.
+    """
+    dev = x.device
+    tab = as_u32(table.words, dev)
+    n_rows, row_words = x.shape
+    state0 = np.concatenate([np.asarray(CONSTANT_WORDS, np.uint64),
+                             np.asarray(key_words, np.uint64).reshape(8), [0],
+                             np.asarray(nonce_words, np.uint64).reshape(3)])
+    zeros = torch.zeros((n_rows, tab.shape[0], 16), dtype=torch.int32, device=dev)
+    ks = chacha20_xor_rows_ref(zeros, state0, nonce_ids, ctr_rows,
+                               (tab[:, 0] + (int(counter0) & MASK32)) & MASK32, tab[:, 1])
+    w = torch.arange(16, device=dev)
+    keep = w[None, :] < tab[:, 3:4]  # (n_blocks, 16)
+    pos = (tab[:, 2:3] + w[None, :])[keep]
+    ks_packed = torch.zeros((n_rows, row_words), dtype=torch.int32, device=dev)
+    ks_packed[:, pos] = ks[:, keep]
+    return x ^ ks_packed

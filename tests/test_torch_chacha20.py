@@ -39,7 +39,8 @@ def test_make_state0_matches_jax():
 
 
 @pytest.mark.parametrize("impl,interpret", JAX_IMPLS)
-@pytest.mark.parametrize("n,counter0", [(1, 0), (45, 2**32 - 2)])
+@pytest.mark.parametrize("n,counter0", [(1, 0), (45, 2**32 - 2), (16, 2**32 - 1),
+                                        (300, 7)])
 def test_xor_words_matches_jax(impl, interpret, n, counter0):
     rng = np.random.default_rng(n)
     kw, nw = _state(rng)
@@ -51,7 +52,7 @@ def test_xor_words_matches_jax(impl, interpret, n, counter0):
 
 
 @pytest.mark.parametrize("impl,interpret", JAX_IMPLS)
-@pytest.mark.parametrize("r,n", [(1, 5), (4, 37), (8, 130)])
+@pytest.mark.parametrize("r,n", [(1, 5), (4, 37), (8, 130), (3, 32), (2, 1)])
 def test_xor_rows_matches_jax(impl, interpret, r, n):
     rng = np.random.default_rng(r * 100 + n)
     kw, nw = _state(rng)
@@ -86,12 +87,15 @@ def test_xor_rows_coalesced_matches_jax(impl, interpret, r, blocks):
 
 
 @pytest.mark.parametrize("impl,interpret", JAX_IMPLS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])
 def test_ctr_crypt_array_matches_jax(impl, interpret, dtype):
     rng = np.random.default_rng(3)
     kw, nw = _state(rng)
     a = rng.normal(size=(5, 7)).astype(np.float32)
-    if dtype == "bfloat16":
+    if dtype == "uint8":
+        a = rng.integers(0, 256, (5, 7)).astype(np.uint8)
+        jx, tx = jnp.asarray(a), torch.from_numpy(a.copy())
+    elif dtype == "bfloat16":
         jx = jnp.asarray(a).astype(jnp.bfloat16)
         tx = torch.from_numpy(np.asarray(jx).view(np.uint16).view(np.int16).copy()).view(
             torch.bfloat16)
@@ -101,6 +105,23 @@ def test_ctr_crypt_array_matches_jax(impl, interpret, dtype):
     want = jops.ctr_crypt_array(jx, kw, nw, 9, impl=impl, interpret=interpret)
     got = tops.ctr_crypt_array(tx, kw, nw, 9)
     assert bytes(got.contiguous().view(torch.uint8).numpy()) == np.asarray(want).tobytes()
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 40])
+def test_row_table_is_row_aligned(n):
+    """The row-aligned entry points' table: block j = words 16j.., counter j,
+    the last block cut to the row."""
+    from repro_torch.kernels.chacha20.table import row_table
+
+    table = row_table(n, torch.device("cpu"))
+    tab = table.words.numpy()
+    blocks = -(-n // 16)
+    np.testing.assert_array_equal(tab[:, 0], np.arange(blocks))
+    np.testing.assert_array_equal(tab[:, 1], np.ones(blocks))
+    np.testing.assert_array_equal(tab[:, 2], 16 * np.arange(blocks))
+    np.testing.assert_array_equal(tab[:, 3], [min(16, n - 16 * j) for j in range(blocks)])
+    assert table.aligned == (n % 16 == 0)
+    assert row_table(n, torch.device("cpu")) is table
 
 
 def test_impl_selector():

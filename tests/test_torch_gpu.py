@@ -6,7 +6,9 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: ChaCha20 output exact; k-means assignments equal to the plain
+Tolerances: ChaCha20 output exact (kernel == plain version bit for bit,
+on row-aligned and packed wires, both kernel designs), one launch and no
+synchronising call per crypt of a warm wire layout; k-means assignments equal to the plain
 version's except at near-ties (the two smallest plain d2 within 1e-5 of
 |x|^2 + |c|^2, the rule of chip_smoke.py; at most 1 in 1,000 points here
 for D > 1)
@@ -21,7 +23,8 @@ import torch
 
 from repro_torch.core.kmeans import generate_points
 from repro_torch.kernels.chacha20 import ops as tops
-from repro_torch.kernels.chacha20.ref import chacha20_xor_rows_ref
+from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
+from repro_torch.kernels.chacha20.table import block_table
 from repro_torch.kernels.kmeans.ops import kmeans_assign
 from repro_torch.kernels.kmeans.ref import kmeans_accumulate_ref, kmeans_assign_ref
 
@@ -37,20 +40,126 @@ def w(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.uint32)).view(np.int32))
 
 
+def _rand_table(rng, blocks, device):
+    """Random counters (wrapping at 2**32) on a row-aligned table."""
+    j = np.arange(blocks, dtype=np.int64)
+    base = rng.integers(0, 2**32, blocks)
+    mul = rng.integers(0, 2**32, blocks)
+    base[: blocks // 2 + 1] = 2**32 - 1 - j[: blocks // 2 + 1]
+    mul[: blocks // 2 + 1] = j[: blocks // 2 + 1] % 5
+    return block_table(base, mul, 16 * j, np.full(blocks, 16), device)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 1])
 @pytest.mark.parametrize("rows,blocks", [(1, 1), (64, 132), (5, 1000)])
-def test_chacha20_kernel_matches_plain(cuda, rows, blocks):
+def test_chacha20_kernel_matches_plain(cuda, rows, blocks, lanes):
     from repro_torch.kernels.chacha20 import kernel
 
     rng = np.random.default_rng(rows + blocks)
-    args = [w(rng.integers(0, 2**32, s, dtype=np.uint32)).to(cuda)
-            for s in [(rows, blocks, 16), 16, rows, rows, blocks, blocks]]
+    x = w(rng.integers(0, 2**32, (rows, 16 * blocks), dtype=np.uint32)).to(cuda)
+    table = _rand_table(rng, blocks, cuda)
+    nid, crow = (w(rng.integers(0, 2**32, rows, dtype=np.uint32)).to(cuda) for _ in range(2))
+    key = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    nonce = rng.integers(0, 2**32, 3, dtype=np.uint32)
+    args = (x, table, key, nonce, 2**32 - 3, nid, crow)
     before = kernel.launches
-    got = kernel.chacha20_xor_rows_cuda(*args)
+    got = kernel.chacha20_xor_packed_cuda(*args, lanes=lanes)
     assert kernel.launches == before + 1
-    assert torch.equal(got.cpu(), chacha20_xor_rows_ref(*[a.cpu() for a in args]))
+    want = chacha20_xor_packed_ref(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+    assert torch.equal(got.cpu(), want)
     with pytest.raises(ValueError, match="impl='torch'"):
-        tops.chacha20_xor_words(args[0].reshape(-1), args[1], impl="torch")
+        tops.chacha20_xor_words(x.reshape(-1), tops.make_state0(key, nonce, 0, device=cuda),
+                                impl="torch")
+
+
+def _packed_tree(rng, s, r, c, device):
+    """Leaves of odd word counts, an (.., 0) leaf, bf16 and uint8: a packed wire
+    whose leaves do not start on 16-word boundaries."""
+    t = {"a": torch.as_tensor(rng.normal(size=(s, r, c, 3)).astype(np.float32)),
+         "b": torch.as_tensor(rng.integers(0, 2**16, (s, r, c)).astype(np.int16)).view(
+             torch.bfloat16),
+         "e": torch.zeros((s, r, c, 0), dtype=torch.float32),
+         "k": torch.as_tensor(rng.integers(-5, 100, (s, r, c)).astype(np.int32)),
+         "u8": torch.as_tensor(rng.integers(0, 256, (s, r, c + 2)).astype(np.uint8))}
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,r,c,counter0,round_id", [
+    (1, 1, 5, 0, None),                 # a 1-row wire
+    (4, 4, 7, 2**32 - 40, 0),           # counters wrap inside the wire
+    (8, 8, 33, 7, 2**32 - 1),           # the k-means round's row count
+    (3, 3, 1, 2**31, 5),
+])
+def test_chacha20_fused_packed_matches_plain(cuda, s, r, c, counter0, round_id):
+    from repro_torch.convert import secure_config
+    from repro_torch.core import shuffle
+
+    rng = np.random.default_rng(s * 100 + c)
+    cfg = secure_config(rng.integers(0, 2**32, 8, dtype=np.uint32),
+                        rng.integers(0, 2**32, 3, dtype=np.uint32), counter0)
+    ids = w(rng.integers(0, 2**32, (2, s * r), dtype=np.uint32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        wire, layout, _ = shuffle._pack_wire_coalesced(_packed_tree(np.random.default_rng(c), s,
+                                                                    r, c, dev), lead=2)
+        flat = wire.reshape(s * r, -1)
+        out[dev.type] = shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0].to(dev),
+                                                      ids[1].to(dev), round_id).cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 1])
+def test_chacha20_fused_64mib_unaligned_matches_plain(cuda, lanes):
+    """64 MiB over 64 rows whose two leaves break the 16-word grid."""
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.chacha20 import kernel
+
+    rng = np.random.default_rng(64)
+    tree = {"x": torch.as_tensor(rng.integers(0, 2**31, (8, 8, 262143)).astype(np.int32)),
+            "y": torch.as_tensor(rng.integers(0, 256, (8, 8, 3)).astype(np.uint8))}
+    wire, layout, _ = shuffle._pack_wire_coalesced({k: v.to(cuda) for k, v in tree.items()},
+                                                   lead=2)
+    flat = wire.reshape(64, -1)
+    assert flat.numel() * 4 == 64 << 20
+    table = shuffle._layout_table(layout, flat.device)
+    ids = w(rng.integers(0, 2**32, (2, 64), dtype=np.uint32)).to(cuda)
+    key = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    nonce = rng.integers(0, 2**32, 3, dtype=np.uint32)
+    args = (flat, table, key, nonce, 2**32 - 1000, ids[0], ids[1])
+    got = kernel.chacha20_xor_packed_cuda(*args, lanes=lanes)
+    assert torch.equal(got, chacha20_xor_packed_ref(*args))
+
+
+@pytest.mark.gpu
+def test_chacha20_crypt_is_one_launch_and_never_syncs(cuda):
+    from repro_torch import VirtualMesh
+    from repro_torch.convert import secure_config
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.chacha20 import kernel
+
+    s = 8
+    tree = _packed_tree(np.random.default_rng(1), s, s, 9, cuda)
+    cfg = secure_config(np.arange(8, dtype=np.uint32), np.arange(3, dtype=np.uint32), 11)
+    send_ids, send_rows, recv_ids, recv_rows = shuffle._exchange_ids(s, s, cuda)
+    wire, layout, _ = shuffle._pack_wire_coalesced(tree, lead=2)
+    flat = wire.reshape(s * s, -1)
+    shuffle._crypt_wire_coalesced(flat, layout, cfg, send_ids, send_rows, 3)  # warm
+    torch.cuda.synchronize()
+    before = kernel.launches
+    mesh = VirtualMesh(s, cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ct = shuffle._crypt_wire_coalesced(flat, layout, cfg, send_ids, send_rows, 3)
+        assert kernel.launches == before + 1
+        moved = mesh.all_to_all(ct.reshape(s, s, -1)).reshape(s * s, -1)
+        back = shuffle._crypt_wire_coalesced(moved, layout, cfg, recv_ids, recv_rows, 3)
+        assert kernel.launches == before + 2
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(back, mesh.all_to_all(wire).reshape(s * s, -1))
 
 
 def _near_ties(pts, ctr):

@@ -20,6 +20,7 @@ from repro.crypto import chacha as jch
 from repro_torch import VirtualMesh
 from repro_torch.convert import secure_config, to_numpy
 from repro_torch.core import shuffle as tsh
+from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
 from repro_torch.tree import tree_flatten
 
 KW = jch.key_to_words(bytes(range(32)))
@@ -123,8 +124,9 @@ def test_coalesced_ciphertext_matches_jax(seed, round_id, c):
     jwire, jlay, _ = jsh._pack_wire_coalesced(_jax_tree(t))
     twire, tlay, _ = tsh._pack_wire_coalesced(_torch_tree(t))
     np.testing.assert_array_equal(twire.numpy().view(np.uint32), np.asarray(jwire))
-    np.testing.assert_array_equal(tlay.ctr_base, jlay.ctr_base)
-    np.testing.assert_array_equal(tlay.ctr_rowmul, jlay.ctr_rowmul)
+    tab = tsh._layout_table(tlay, twire.device).words.numpy().view(np.uint32)
+    np.testing.assert_array_equal(tab[:, 0], jlay.ctr_base)
+    np.testing.assert_array_equal(tab[:, 1], jlay.ctr_rowmul)
     assert tlay.total_blocks == jlay.total_blocks
     assert tlay.payload_words == jlay.payload_words
     rid = None if round_id is None else jnp.uint32(round_id)
@@ -133,6 +135,94 @@ def test_coalesced_ciphertext_matches_jax(seed, round_id, c):
     got = tsh._crypt_wire_coalesced(twire, tlay, _tcfg(), torch.from_numpy(
         nonce_ids.view(np.int32)), torch.from_numpy(ctr_rows.view(np.int32)), round_id)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), np.asarray(want))
+
+
+# --- the fused crypt: block table and plain version ----------------------------------
+
+
+def _layout_tree(kind: str, rng, r: int):
+    """numpy trees whose packed leaves break the 16-word grid: odd word
+    counts, a leaf with no words, bf16 half words and uint8 quarter words."""
+    t = {"f": rng.normal(size=(r, 5, 3)).astype(np.float32),
+         "k": rng.integers(-5, 100, (r, 7)).astype(np.int32)}
+    if kind in ("empty", "all"):
+        t["e"] = np.zeros((r, 5, 0), np.float32)
+    if kind in ("bf16", "all"):
+        t["h"] = rng.integers(0, 2**16, (r, 9), dtype=np.uint16)  # bf16 bits
+    if kind in ("uint8", "all"):
+        t["u8"] = rng.integers(0, 256, (r, 11), dtype=np.uint8)
+    return t
+
+
+def _layout_pair(t):
+    jt = {k: (jnp.asarray(v).view(jnp.bfloat16) if k == "h" else jnp.asarray(v))
+          for k, v in t.items()}
+    tt = {k: (torch.as_tensor(v.view(np.int16)).view(torch.bfloat16) if k == "h"
+              else torch.as_tensor(v)) for k, v in t.items()}
+    return jsh._pack_wire_coalesced(jt), tsh._pack_wire_coalesced(tt)
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("kind", ["odd", "empty", "bf16", "uint8", "all"])
+def test_layout_table_matches_jax_layout(kind, r):
+    """The cached block table holds the reference layout's counters and its
+    packed offsets, and its blocks cover every packed word exactly once."""
+    tree = _layout_tree(kind, np.random.default_rng(r), r)
+    (jwire, jlay, _), (twire, tlay, _) = _layout_pair(tree)
+    np.testing.assert_array_equal(twire.numpy().view(np.uint32), np.asarray(jwire))
+    table = tsh._layout_table(tlay, twire.device)
+    assert table is tsh._layout_table(tlay, twire.device)  # cached
+    tab = table.words.numpy().view(np.uint32)
+    assert tab.shape == (jlay.total_blocks, 4)
+    np.testing.assert_array_equal(tab[:, 0], jlay.ctr_base)
+    np.testing.assert_array_equal(tab[:, 1], jlay.ctr_rowmul)
+    start, valid = [], []
+    for _shape, _dtype, _pad, word_start, n_words, blocks, _ks in jlay.leaves:
+        for b in range(blocks):
+            start.append(word_start + 16 * b)
+            valid.append(min(16, n_words - 16 * b))
+    np.testing.assert_array_equal(tab[:, 2], start)
+    np.testing.assert_array_equal(tab[:, 3], valid)
+    covered = np.zeros(jlay.payload_words, np.int64)
+    for s0, nv in zip(tab[:, 2], tab[:, 3]):
+        covered[s0:s0 + nv] += 1
+    assert (covered == 1).all()
+    assert table.aligned == bool((tab[:, 3] == 16).all() and (tab[:, 2] % 4 == 0).all())
+
+
+@pytest.mark.parametrize("counter0", [100, 2**32 - 3])
+@pytest.mark.parametrize("kind", ["odd", "all"])
+def test_fused_plain_matches_jax_crypt(kind, counter0):
+    """The fused plain version (the CPU route of `_crypt_wire_coalesced`)
+    equals the reference's aligned-keystream-and-slice crypt bit for bit, with
+    counters wrapping at 2**32 and round ids None, 0 and 2**32 - 1."""
+    r = 3
+    rng = np.random.default_rng(counter0 % 97)
+    (jwire, jlay, _), (twire, tlay, _) = _layout_pair(_layout_tree(kind, rng, r))
+    nonce_ids = rng.integers(0, 2**32, r, dtype=np.uint32)
+    ctr_rows = rng.integers(0, 2**16, r, dtype=np.uint32)
+    tid, trows = (torch.from_numpy(a.view(np.int32)) for a in (nonce_ids, ctr_rows))
+    table = tsh._layout_table(tlay, twire.device)
+    for round_id in (None, 0, 2**32 - 1):
+        rid = None if round_id is None else jnp.uint32(round_id)
+        want = np.asarray(jsh._crypt_wire_coalesced(
+            jwire, jlay, _jcfg(counter0=counter0), jnp.asarray(nonce_ids),
+            jnp.asarray(ctr_rows), rid))
+        got = tsh._crypt_wire_coalesced(twire, tlay, _tcfg(counter0=counter0), tid, trows,
+                                        round_id)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        direct = chacha20_xor_packed_ref(twire, table, KW, tsh._round_nonce(_tcfg(), round_id),
+                                         counter0, tid, trows)
+        assert torch.equal(direct, got)
+
+
+def test_exchange_ids_are_cached_int32():
+    ids = tsh._exchange_ids(3, 3, torch.device("cpu"))
+    assert ids is tsh._exchange_ids(3, 3, torch.device("cpu"))
+    assert all(t.dtype == torch.int32 for t in ids)
+    send_ids, send_rows, recv_ids, recv_rows = (t.tolist() for t in ids)
+    assert send_ids == recv_rows == [0, 0, 0, 1, 1, 1, 2, 2, 2]
+    assert send_rows == recv_ids == [0, 1, 2] * 3
 
 
 def test_coalesced_equals_per_leaf_per_region():

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs seven phases, each printing one JSON line:
+then runs ten phases, each printing one JSON line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -37,19 +37,30 @@ then runs seven phases, each printing one JSON line:
                  this run alone; plaintext fit identical bit for bit
   parity_small   the same fit at N=4096, K=8, D=4 on the card and on the CPU
                  (plain versions), and one fixed wire encrypted on both
+  sort           secure sample_sort of 2**24 lognormal f32 values, 8 shards,
+                 lossless capacity (a 1 GiB wire a round), balance 1.5, a
+                 6-round budget: output == np.sort bit for bit, counts sum to
+                 n, no drop in the last round, halted, sharded == replicated
+                 layout and plaintext == secure bit for bit, one sync a round;
+                 ms per job and round, rounds, wire bytes, the ChaCha kernel at
+                 this wire against its bytes bound, device operations and
+                 syncs per round, peak memory
+  grep           secure grep_count of 2**26 Zipf tokens (vocabulary 65,536)
+                 for 16 patterns of ranks 64-4096, 16 rounds (a 256 MiB wire a
+                 round), and with max_matches at half the hits: hits == numpy
+                 exactly (over the executed chunks when limited), the limited
+                 job halts early, one sync a round; the same figures
+  wordcount      secure wordcount of the same tokens: counts == np.bincount
+                 exactly, plaintext == secure; ms per job, wire, ChaCha time
   kernels        per kernel: launches on the main path, time, bound, plain
-                 and library times
+                 and library times; the ChaCha20 kernel's launches on each
+                 path (k-means, sort, grep, wordcount), each counted from 0
+                 just before that path's run
 
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero. It needs a CUDA card and the
-repository's `src/` beside it.
-
-    python3 chip_smoke.py --measure [--src DIR]
-
-runs only the measurements that any version of the port answers through the
-same calls (crypt_call without its assertions, then kmeans_fit), against the
-`repro_torch` under DIR (default: this checkout's `src/`), so that an older
-checkout unpacked beside this one can be measured in the same call, in turns.
+repository's `src/` beside it. To compare with an older commit, run that
+commit's own chip_smoke.py from its checkout in the same chip call.
 """
 
 from __future__ import annotations
@@ -82,6 +93,11 @@ PEAK_TF32_S = 495e12  # H100 SXM TF32 tensor cores, dense
 PEAK_I32_S = 128 * 132 * 1.98e9
 CHACHA_OPS_PER_BLOCK = 80 * 12 + 16 + 16 + 2  # QRs, feed-forward, XOR, counter
 KEY = bytes(range(32))
+# sort: 2**24 lognormal values, the largest power of two whose f32 counts stay exact
+SORT_N, SORT_SEED, SORT_ROUNDS, SORT_BALANCE = 2**24, 0, 6, 1.5
+# grep and wordcount: 2**26 Zipf tokens over 65,536 words; 16 patterns of ranks 64-4096
+N_TOKENS, VOCAB, TOKEN_SEED = 2**26, 65536, 0
+GREP_SEED, GREP_PATTERNS, GREP_ROUNDS = 1, 16, 16
 
 
 def emit(obj) -> None:
@@ -414,21 +430,9 @@ def _profiled(fn):
     return out, busy_us / 1e3, [[name[:80], us / 1e3] for name, us in top]
 
 
-def _crypt_ids(shuffle, dev):
-    """The (send_ids, send_rows) a k-means round's sender crypt is given:
-    the port's cached int32 ids, or, in a port that has none, the int64
-    aranges its keyed_all_to_all built per call."""
-    if hasattr(shuffle, "_exchange_ids"):
-        return shuffle._exchange_ids(SHARDS, SHARDS, dev)[:2]
-    shard = torch.arange(SHARDS, device=dev)[:, None].expand(SHARDS, SHARDS).reshape(-1)
-    row = torch.arange(SHARDS, device=dev)[None, :].expand(SHARDS, SHARDS).reshape(-1)
-    return shard, row
-
-
-def phase_crypt_call(dev, points, strict: bool = True):
-    """The crypt call of the shuffle and a round around it, through calls
-    every version of the port has. `strict` asserts one device operation and
-    no synchronising call per crypt (this version's contract)."""
+def phase_crypt_call(dev, points):
+    """The crypt call of the shuffle and a round around it: one device
+    operation and no synchronising call per crypt."""
     from repro_torch import VirtualMesh
     from repro_torch.core import driver, shuffle
     from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
@@ -441,7 +445,7 @@ def phase_crypt_call(dev, points, strict: bool = True):
                 for k, v in tree.items()}
         wire, layout, _ = shuffle._pack_wire_coalesced(tree, lead=2)
         flat = wire.reshape(SHARDS * SHARDS, -1)
-        ids = _crypt_ids(shuffle, dev)
+        ids = shuffle._exchange_ids(SHARDS, SHARDS, dev)
 
         def crypt():
             return shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], 3)
@@ -463,24 +467,23 @@ def phase_crypt_call(dev, points, strict: bool = True):
         res["device_ops_per_crypt"] = len(ops_)
         res["device_ops_names"] = sorted({op[:60] for op, _ in ops_})
         res["syncs_per_crypt"] = _count_syncs(crypt)[1]
-        if strict:
-            check(len(ops_) == 1 and "chacha20" in ops_[0][0],
-                  f"a warm crypt ran {len(ops_)} device operations: {res['device_ops_names']}")
-            check(res["syncs_per_crypt"] == 0, f"a warm crypt synchronised "
-                  f"{res['syncs_per_crypt']} times")
-            send_ids, send_rows, recv_ids, recv_rows = shuffle._exchange_ids(SHARDS, SHARDS, dev)
-            mesh = VirtualMesh(SHARDS, dev)
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:  # the two crypts of one secure round
-                ct = shuffle._crypt_wire_coalesced(flat, layout, cfg, send_ids, send_rows, 3)
-                moved = mesh.all_to_all(ct.reshape(SHARDS, SHARDS, -1)).reshape(flat.shape)
-                back = shuffle._crypt_wire_coalesced(moved, layout, cfg, recv_ids, recv_rows, 3)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            check(torch.equal(back, mesh.all_to_all(wire).reshape(flat.shape)),
-                  "the round's two crypts do not invert")
-            res["round_crypts_under_sync_error_mode"] = True
+        check(len(ops_) == 1 and "chacha20" in ops_[0][0],
+              f"a warm crypt ran {len(ops_)} device operations: {res['device_ops_names']}")
+        check(res["syncs_per_crypt"] == 0, f"a warm crypt synchronised "
+              f"{res['syncs_per_crypt']} times")
+        send_ids, send_rows, recv_ids, recv_rows = shuffle._exchange_ids(SHARDS, SHARDS, dev)
+        mesh = VirtualMesh(SHARDS, dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:  # the two crypts of one secure round
+            ct = shuffle._crypt_wire_coalesced(flat, layout, cfg, send_ids, send_rows, 3)
+            moved = mesh.all_to_all(ct.reshape(SHARDS, SHARDS, -1)).reshape(flat.shape)
+            back = shuffle._crypt_wire_coalesced(moved, layout, cfg, recv_ids, recv_rows, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(torch.equal(back, mesh.all_to_all(wire).reshape(flat.shape)),
+              "the round's two crypts do not invert")
+        res["round_crypts_under_sync_error_mode"] = True
 
     # one executed round as the driver runs it (map, shuffle, reduce, then
     # the halt read), secure and plaintext
@@ -488,19 +491,29 @@ def phase_crypt_call(dev, points, strict: bool = True):
     spec = make_kmeans_iterative_spec(K, mesh, threshold=paper_threshold(points))
     weights = torch.ones((points.shape[0],), dtype=torch.float32, device=dev)
     for name, sec in (("secure", cfg), ("plain", None)):
-        sec, state, inputs = driver._prepare(spec, {"p": points, "w": weights},
-                                             points[:K].contiguous(), mesh, sec, None, None)
-
-        def one_round():
-            st, aux, _ = driver._round(spec, mesh, inputs, state, 0, sec, None, {})
-            return bool(spec.halt_fn(st, aux, 0))
-
-        one_round()
-        _, ops_ = _device_events(one_round)
-        res[f"device_ops_per_{name}_round"] = len(ops_)
-        res[f"syncs_per_{name}_round"] = _count_syncs(one_round)[1]
+        ops_, syncs = round_counts(driver, spec, {"p": points, "w": weights},
+                                   points[:K].contiguous(), mesh, sec)
+        res[f"device_ops_per_{name}_round"] = ops_
+        res[f"syncs_per_{name}_round"] = syncs
     emit(res)
     return res
+
+
+def round_counts(driver, spec, inputs, init_state, mesh, secure):
+    """(device operations, synchronising calls) of one warm executed round as
+    the driver runs it: map, shuffle, reduce, then the halt read when the
+    spec has a halt."""
+    sec, state, inp, layout = driver._prepare(spec, inputs, init_state, mesh, secure, None, None)
+
+    def one_round():
+        st, aux, _ = driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout)
+        if spec.halt_fn is None:
+            return None
+        return bool(spec.halt_fn(st, aux, 0))
+
+    one_round()
+    _, ops_ = _device_events(one_round)
+    return len(ops_), _count_syncs(one_round)[1]
 
 
 def phase_kmeans_fit(dev, points):
@@ -610,32 +623,361 @@ def phase_parity_small(dev):
     return res
 
 
+def wire_crypt(dev, tree, reps: int, round_id: int):
+    """The ChaCha20 kernel at a workload's round wire (the send buffers of one
+    round, (S, R, C) leaves): the shuffle's crypt on the card against the
+    plain version on the same wire, table, ids and round, bit for bit (row
+    groups of at most 2**20 blocks, so the plain version's temporaries stay
+    small); then device ms per launch by torch.profiler, the lanes chosen,
+    and the bytes bound (wire words read and written once, plus the block
+    table and ids, over 3.35 TB/s)."""
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.chacha20 import kernel as ck, ref as cr
+
+    wire, layout, _ = shuffle._pack_wire_coalesced(tree, lead=2)
+    s, r = wire.shape[:2]
+    flat = wire.reshape(s * r, -1)
+    ids = shuffle._exchange_ids(s, r, dev)
+    cfg = _secure_cfg()
+    table = shuffle._layout_table(layout, dev)
+    nonce = shuffle._round_nonce(cfg, round_id)
+    got = shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], round_id)
+    step = max(1, (1 << 20) // layout.total_blocks)
+    for i in range(0, s * r, step):
+        want = cr.chacha20_xor_packed_ref(flat[i:i + step], table, cfg.key_words, nonce,
+                                          cfg.counter0, ids[0][i:i + step], ids[1][i:i + step])
+        check(torch.equal(got[i:i + step], want),
+              f"chacha20 kernel != plain on the {s}x{r}x{layout.total_blocks}-block wire, "
+              f"rows {i}..{min(i + step, s * r)}")
+        del want
+    del got
+    blocks = s * r * layout.total_blocks
+    nbytes = 2 * flat.numel() * 4 + layout.total_blocks * 16 + 2 * s * r * 4
+    ops_ = blocks * CHACHA_OPS_PER_BLOCK
+    ms = kernel_device_ms(lambda: shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0],
+                                                                ids[1], round_id),
+                          "chacha20", reps)
+    del wire, flat
+    return {"wire_bytes": s * r * layout.payload_words * 4, "blocks": blocks,
+            "leaves": len(layout.leaves), "round_id": round_id, "bit_exact": True,
+            "lanes": ck.lanes_for(blocks, dev), "kernel_ms": ms,
+            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S, ops_ / PEAK_I32_S),
+            "bound_by": "operations" if ops_ / PEAK_I32_S > nbytes / PEAK_BYTES_S else "bytes"}
+
+
+def _send_tree(dev, cap: int, seed: int, values=("v",)):
+    """Send buffers of one round filled with seeded random bits: an int32 key
+    leaf and f32 value leaves, each (S, R, cap)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (SHARDS, SHARDS, cap)
+
+    def bits():
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=dev, generator=g)
+
+    return {"k": bits(), "v": {n: bits().view(torch.float32) for n in values}}
+
+
+def timed(fn):
+    """(result, host seconds) of fn, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_sort(dev):
+    """Secure sampling sort of 2**24 lognormal f32 values on 8 virtual shards."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.core.sort import initial_edges, make_sample_sort_spec, sample_sort
+    from repro_torch.kernels.chacha20 import kernel as ck
+
+    n = SORT_N
+    check(n <= 2**24, "f32 counts are exact only up to 2**24 records")
+    values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, n).astype(np.float32)
+    values = torch.from_numpy(values_np).to(dev)
+    mesh = VirtualMesh(SHARDS, dev)
+    cfg = _secure_cfg()
+
+    def job(secure, shard_state="auto"):
+        return sample_sort(values, mesh, secure=secure, n_rounds=SORT_ROUNDS,
+                           balance=SORT_BALANCE, shard_state=shard_state)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launches = 0
+    with record_wire_bytes() as recs:
+        (out, counts, dropped), first_s = timed(lambda: job(cfg))
+    launches = ck.launches
+    peak = torch.cuda.max_memory_allocated()
+    rounds = len(dropped)
+    check(launches == 2 * rounds, f"sort: {launches} ChaCha launches for {rounds} rounds")
+    check(len(recs) == rounds and all(r["keystream_launches"] == 2 for r in recs),
+          "sort: one secure shuffle with 2 keystream launches per round")
+    expect = np.sort(values_np, kind="stable")
+    check(np.array_equal(out.view(np.uint32), expect.view(np.uint32)),
+          "sort output != np.sort(values) bit for bit")
+    check(float(counts.sum()) == n and int(dropped[-1]) == 0,
+          f"sort: counts sum {float(counts.sum())}, last round dropped {int(dropped[-1])}")
+
+    # the same job through run_until, both layouts of the sorted table: the
+    # round figures and the halt, and the layouts equal bit for bit
+    cap = n // SHARDS
+    edges = torch.from_numpy(initial_edges(float(values_np.min()), float(values_np.max()),
+                                           SHARDS)).to(dev)
+    init = {"edges": edges, "counts": torch.zeros(SHARDS, device=dev),
+            "sorted": torch.full((SHARDS, SHARDS * cap), torch.inf, device=dev)}
+    specs = {shard: make_sample_sort_spec(mesh, cap, halt_total=n, balance=SORT_BALANCE,
+                                          shard_state=shard) for shard in (True, False)}
+    runs = {shard: driver.run_until(spec, {"v": values}, init, mesh, secure=cfg,
+                                    max_rounds=SORT_ROUNDS, warn_on_overflow=False)
+            for shard, spec in specs.items()}
+    sh, rep = runs[True], runs[False]
+    check(sh.halted and sh.rounds_executed == rounds, "sort: the job did not halt")
+    for k in sh.state:
+        check(torch.equal(sh.state[k].view(torch.int32), rep.state[k].view(torch.int32)),
+              f"sort: sharded and replicated layouts differ in {k}")
+    check((sh.rounds_executed, sh.rounds_dispatched) == (rep.rounds_executed,
+                                                         rep.rounds_dispatched),
+          "sort: layouts differ in rounds")
+    loads = [float(c.max()) * SHARDS / n for c in sh.aux["counts"]]
+    del runs, rep
+
+    plain, _ = timed(lambda: job(None))
+    check(np.array_equal(plain[0].view(np.uint32), out.view(np.uint32)),
+          "sort: plaintext output != secure output")
+    # warm runs in turns: plain, secure, secure, plain
+    _, p1 = timed(lambda: job(None))
+    _, s1 = timed(lambda: job(cfg))
+    prof, busy_ms, top = _profiled(lambda: timed(lambda: job(cfg)))
+    s2 = prof[1]
+    _, p2 = timed(lambda: job(None))
+    _, rep_s = timed(lambda: job(cfg, "replicated"))
+
+    ops_, syncs = round_counts(driver, specs[True], {"v": values}, init, mesh, cfg)
+    check(syncs == 1, f"a sort round synchronised {syncs} times (only the halt read may)")
+    crypt = wire_crypt(dev, _send_tree(dev, cap, 11), 10, 5)
+    check(crypt["wire_bytes"] == recs[0]["wire_bytes"] * SHARDS, "sort wire size")
+    res = {"phase": "sort", "n": n, "shards": SHARDS, "capacity": cap,
+           "balance": SORT_BALANCE, "n_rounds": SORT_ROUNDS,
+           "rounds_executed": rounds, "rounds_dispatched": sh.rounds_dispatched,
+           "n_dispatches": sh.n_dispatches, "halted": sh.halted,
+           "max_load_over_fair": loads, "dropped": [int(x) for x in dropped],
+           "first_job_s": first_s, "job_ms": 1e3 * min(s1, s2),
+           "ms_per_round": 1e3 * min(s1, s2) / rounds,
+           "plain_job_ms": 1e3 * min(p1, p2), "plain_ms_per_round": 1e3 * min(p1, p2) / rounds,
+           "replicated_job_ms": 1e3 * rep_s,
+           "job_s_runs": {"plain": [p1, p2], "secure": [s1, s2]},
+           "device_busy_ms": busy_ms,
+           "device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * s2),
+           "top_device_ops": top,
+           "wire_bytes_per_round": recs[0]["wire_bytes"] * SHARDS,
+           "chacha": crypt, "launches": {"chacha20": launches},
+           "device_ops_per_round": ops_, "syncs_per_round": syncs,
+           "peak_memory_bytes": peak, "sorted_equals_numpy": True,
+           "layouts_equal": True, "secure_equals_plain": True}
+    emit(res)
+    return res
+
+
+def zipf_tokens(n: int, vocab: int, seed: int) -> np.ndarray:
+    """n int32 token ids, Zipf (s = 1) over `vocab` ranks: token t has rank t + 1."""
+    rng = np.random.default_rng(seed)
+    cdf = np.cumsum(1.0 / np.arange(1, vocab + 1))
+    cdf /= cdf[-1]
+    out = np.empty(n, np.int32)
+    step = 1 << 22
+    for i in range(0, n, step):
+        u = rng.random(min(step, n - i))
+        out[i:i + u.size] = np.minimum(np.searchsorted(cdf, u, side="right"), vocab - 1)
+    return out
+
+
+def phase_grep(dev, tokens_np, tokens):
+    """Secure streaming grep of 2**26 Zipf tokens for 16 patterns, 16 rounds."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.core.grep import grep_count, make_grep_spec
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.chacha20 import kernel as ck
+
+    rng = np.random.default_rng(GREP_SEED)
+    patterns = rng.choice(np.arange(63, 4096), GREP_PATTERNS, replace=False).astype(np.int32)
+    freq = np.bincount(tokens_np, minlength=VOCAB)
+    want = freq[patterns].astype(np.float32)
+    check(freq.max() <= 2**24, "f32 counts are exact only up to 2**24")
+    mesh = VirtualMesh(SHARDS, dev)
+    cfg = _secure_cfg()
+    chunk = tokens_np.size // SHARDS // GREP_ROUNDS
+
+    torch.cuda.synchronize()
+    ck.launches = 0
+    with record_wire_bytes() as recs:
+        (hits, round_hits, dropped), first_s = timed(lambda: grep_count(
+            tokens, patterns, mesh, secure=cfg, n_rounds=GREP_ROUNDS))
+    launches = ck.launches
+    check(np.array_equal(hits.cpu().numpy(), want), "grep hits != numpy count")
+    check(int(dropped.sum()) == 0, "grep: a round dropped records")
+    # the same job through run_until, as grep_count runs it (one dispatch of
+    # every round): the round figures as the driver reports them
+    init = {"hits": torch.zeros(GREP_PATTERNS, device=dev),
+            "cursor": torch.zeros((), dtype=torch.int64, device=dev)}
+    full = driver.run_until(make_grep_spec(patterns, chunk, mesh), {"t": tokens}, init, mesh,
+                            secure=cfg, max_rounds=GREP_ROUNDS, min_chunk=GREP_ROUNDS)
+    rounds = full.rounds_executed
+    check(torch.equal(full.state["hits"], hits) and round_hits.shape == (rounds, GREP_PATTERNS),
+          "grep_count != its run_until")
+    check(rounds == GREP_ROUNDS, f"grep executed {rounds} of {GREP_ROUNDS} rounds")
+    check(launches == 2 * rounds, f"grep: {launches} ChaCha launches for {rounds} rounds")
+    limit = int(want.sum()) // 2
+    spec_lim = make_grep_spec(patterns, chunk, mesh, max_matches=limit)
+    lim = driver.run_until(spec_lim, {"t": tokens}, init, mesh, secure=cfg,
+                           max_rounds=GREP_ROUNDS)
+    executed = lim.rounds_executed
+    seen = tokens_np.reshape(SHARDS, GREP_ROUNDS, chunk)[:, :executed]
+    want_lim = np.bincount(seen.reshape(-1), minlength=VOCAB)[patterns].astype(np.float32)
+    check(lim.halted and executed < GREP_ROUNDS, "grep -m did not halt early")
+    check(np.array_equal(lim.state["hits"].cpu().numpy(), want_lim),
+          "grep -m hits != numpy count over the executed chunks")
+    (h2, rh2, _), _ = timed(lambda: grep_count(tokens, patterns, mesh, secure=cfg,
+                                               n_rounds=GREP_ROUNDS, max_matches=limit))
+    check(torch.equal(h2, lim.state["hits"]) and rh2.shape[0] == executed,
+          "grep_count with max_matches != its run_until")
+    (hp, _, _), _ = timed(lambda: grep_count(tokens, patterns, mesh, n_rounds=GREP_ROUNDS))
+    check(torch.equal(hp, hits), "grep: plaintext hits != secure hits")
+
+    _, p1 = timed(lambda: grep_count(tokens, patterns, mesh, n_rounds=GREP_ROUNDS))
+    _, s1 = timed(lambda: grep_count(tokens, patterns, mesh, secure=cfg, n_rounds=GREP_ROUNDS))
+    prof, busy_ms, top = _profiled(lambda: timed(lambda: grep_count(
+        tokens, patterns, mesh, secure=cfg, n_rounds=GREP_ROUNDS)))
+    s2 = prof[1]
+    _, p2 = timed(lambda: grep_count(tokens, patterns, mesh, n_rounds=GREP_ROUNDS))
+    _, l1 = timed(lambda: grep_count(tokens, patterns, mesh, secure=cfg, n_rounds=GREP_ROUNDS,
+                                     max_matches=limit))
+
+    ops_lim, syncs_lim = round_counts(driver, spec_lim, {"t": tokens}, init, mesh, cfg)
+    check(syncs_lim == 1, f"a grep round synchronised {syncs_lim} times (only the halt read may)")
+    ops_free, syncs_free = round_counts(driver, make_grep_spec(patterns, chunk, mesh),
+                                        {"t": tokens}, init, mesh, cfg)
+    crypt = wire_crypt(dev, _send_tree(dev, chunk, 12, ("one",)), 20, 2**32 - 1)
+    seg = segment_sum_times(tokens, patterns, chunk)
+    check(crypt["wire_bytes"] == recs[0]["wire_bytes"] * SHARDS, "grep wire size")
+    res = {"phase": "grep", "n": int(tokens_np.size), "vocab": VOCAB, "shards": SHARDS,
+           "patterns": patterns.tolist(), "hits": want.tolist(),
+           "max_count": int(freq.max()), "chunk_per_shard": chunk,
+           "rounds_executed": rounds, "rounds_dispatched": full.rounds_dispatched,
+           "n_dispatches": full.n_dispatches,
+           "limited": {"max_matches": limit, "rounds_executed": executed,
+                       "rounds_dispatched": lim.rounds_dispatched,
+                       "n_dispatches": lim.n_dispatches, "halted": lim.halted,
+                       "job_ms": 1e3 * l1, "ms_per_round": 1e3 * l1 / executed},
+           "first_job_s": first_s, "job_ms": 1e3 * min(s1, s2),
+           "ms_per_round": 1e3 * min(s1, s2) / rounds,
+           "plain_job_ms": 1e3 * min(p1, p2),
+           "plain_ms_per_round": 1e3 * min(p1, p2) / rounds,
+           "job_s_runs": {"plain": [p1, p2], "secure": [s1, s2]},
+           "device_busy_ms": busy_ms,
+           "device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * s2),
+           "top_device_ops": top,
+           "wire_bytes_per_round": recs[0]["wire_bytes"] * SHARDS,
+           "chacha": crypt, "segment_sum": seg, "launches": {"chacha20": launches},
+           "device_ops_per_round": ops_lim, "syncs_per_round": syncs_lim,
+           "device_ops_per_round_no_limit": ops_free, "syncs_per_round_no_limit": syncs_free,
+           "hits_equal_numpy": True, "secure_equals_plain": True}
+    emit(res)
+    return res
+
+
+def segment_sum_times(tokens, patterns, chunk: int):
+    """grep's reduce segment sum at one round's receive shape (S, R * chunk):
+    the pattern ids of each shard's first R * chunk tokens, -1 where none
+    matches (R times the hits of a real receive buffer, whose other slots
+    are padding too). The port's design (dropped ids spread over SPILL
+    scratch segments) against the reference's (dropped ids sent to segment
+    0 with value 0, so their atomics share one address per shard). Equal
+    results asserted; ms by CUDA events."""
+    from repro_torch.core.grep import SPILL, segment_sum
+
+    dev = tokens.device
+    t = tokens.reshape(SHARDS, -1)[:, :SHARDS * chunk]
+    pat = torch.as_tensor(patterns, device=dev)
+    eq = t[..., None] == pat
+    ids = torch.where(eq.any(-1), eq.to(torch.uint8).argmax(-1), -1).to(torch.int32)
+    del eq
+    ones = torch.ones(ids.shape, device=dev)
+    n = pat.numel()
+    base = n * torch.arange(SHARDS, device=dev)[:, None]
+
+    def one_address():
+        valid = ids >= 0
+        out = torch.zeros(SHARDS * n, device=dev)
+        out.index_add_(0, (torch.where(valid, ids, 0) + base).reshape(-1),
+                       torch.where(valid, ones, 0.0).reshape(-1))
+        return out.reshape(SHARDS, n)
+
+    check(torch.equal(segment_sum(ones, ids, n), one_address()),
+          "segment_sum designs disagree")
+    return {"slots": ids.numel(), "valid_share": float((ids >= 0).float().mean()),
+            "spill_segments": SPILL, "spill_ms": cuda_ms(lambda: segment_sum(ones, ids, n), 20),
+            "one_address_ms": cuda_ms(one_address, 20)}
+
+
+def phase_wordcount(dev, tokens_np, tokens):
+    """Secure word count of the same 2**26 tokens over 65,536 words."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.core.wordcount import wordcount
+    from repro_torch.kernels.chacha20 import kernel as ck
+
+    mesh = VirtualMesh(SHARDS, dev)
+    cfg = _secure_cfg()
+    want = np.bincount(tokens_np, minlength=VOCAB).astype(np.float32)
+    check(want.max() <= 2**24, "f32 counts are exact only up to 2**24")
+    torch.cuda.synchronize()
+    ck.launches = 0
+    with record_wire_bytes() as recs:
+        (counts, dropped), first_s = timed(lambda: wordcount(tokens, VOCAB, mesh, secure=cfg))
+    launches = ck.launches
+    check(launches == 2, f"wordcount: {launches} ChaCha launches for its one round")
+    check(np.array_equal(counts.cpu().numpy(), want) and int(dropped) == 0,
+          "wordcount counts != np.bincount")
+    (plain, _), _ = timed(lambda: wordcount(tokens, VOCAB, mesh))
+    check(torch.equal(plain, counts), "wordcount: plaintext counts != secure counts")
+    _, p1 = timed(lambda: wordcount(tokens, VOCAB, mesh))
+    _, s1 = timed(lambda: wordcount(tokens, VOCAB, mesh, secure=cfg))
+    prof, busy_ms, top = _profiled(lambda: timed(lambda: wordcount(tokens, VOCAB, mesh,
+                                                                   secure=cfg)))
+    s2 = prof[1]
+    _, p2 = timed(lambda: wordcount(tokens, VOCAB, mesh))
+    crypt = wire_crypt(dev, _send_tree(dev, -(-VOCAB // SHARDS), 13), 20, 0)
+    check(crypt["wire_bytes"] == recs[0]["wire_bytes"] * SHARDS, "wordcount wire size")
+    res = {"phase": "wordcount", "n": int(tokens_np.size), "vocab": VOCAB, "shards": SHARDS,
+           "first_job_s": first_s, "job_ms": 1e3 * min(s1, s2), "plain_job_ms": 1e3 * min(p1, p2),
+           "job_s_runs": {"plain": [p1, p2], "secure": [s1, s2]},
+           "device_busy_ms": busy_ms,
+           "device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * s2),
+           "top_device_ops": top, "wire_bytes": recs[0]["wire_bytes"] * SHARDS,
+           "chacha": crypt, "launches": {"chacha20": launches},
+           "counts_equal_numpy": True, "secure_equals_plain": True}
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--measure", action="store_true",
-                    help="run only crypt_call (no assertions) and kmeans_fit")
-    ap.add_argument("--src", default=SRC, help="directory holding the repro_torch to run")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    src = os.path.abspath(args.src)
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: the port's sources are missing ({src}/repro_torch)", file=sys.stderr)
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: the port's sources are missing ({SRC}/repro_torch)", file=sys.stderr)
         return 1
-    sys.path.insert(0, src)
+    sys.path.insert(0, SRC)
     from repro_torch.core.kmeans import generate_points
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
-    if args.measure:
-        _build.build("chacha20", "kmeans")
-        points = torch.from_numpy(generate_points(N_POINTS, K, d=D, seed=0)[0]).to(dev)
-        emit({"phase": "measure", "src": src})
-        phase_crypt_call(dev, points, strict=False)
-        phase_kmeans_fit(dev, points)
-        return 0
-
     smi = phase_device(_build)
     cha = phase_chacha(dev)
 
@@ -646,16 +988,38 @@ def main(argv=None) -> int:
     crypt = phase_crypt_call(dev, points)
     fit = phase_kmeans_fit(dev, points)
     phase_parity_small(dev)
+    del points
+    torch.cuda.empty_cache()
+    srt = phase_sort(dev)
+    torch.cuda.empty_cache()
+    tokens_np = zipf_tokens(N_TOKENS, VOCAB, TOKEN_SEED)
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    grp = phase_grep(dev, tokens_np, tokens)
+    wc = phase_wordcount(dev, tokens_np, tokens)
 
     rounds = fit["rounds_executed"]
     wire, big = cha["wire"], cha["64MiB"]
+    by_path = {"kmeans": fit["launches"]["chacha20"], "sort": srt["launches"]["chacha20"],
+               "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"]}
+    check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/chacha20.cu",
          "replaces": "src/repro/kernels/chacha20/kernel.py:180",
          "replaces_function": "chacha20_xor_row_lanes",
          "launches": fit["launches"]["chacha20"],
-         "launches_per_round": fit["launches"]["chacha20"] / rounds,
+         "launches_by_path": by_path,
+         "launches_per_round": {"kmeans": by_path["kmeans"] / rounds,
+                                "sort": by_path["sort"] / srt["rounds_executed"],
+                                "grep": by_path["grep"] / grp["rounds_executed"],
+                                "wordcount": by_path["wordcount"] / 1},
+         "ms_sort_wire": srt["chacha"]["kernel_ms"],
+         "bound_ms_sort_wire": srt["chacha"]["bound_ms"], "lanes_sort_wire": srt["chacha"]["lanes"],
+         "ms_grep_wire": grp["chacha"]["kernel_ms"],
+         "bound_ms_grep_wire": grp["chacha"]["bound_ms"], "lanes_grep_wire": grp["chacha"]["lanes"],
+         "ms_wordcount_wire": wc["chacha"]["kernel_ms"],
+         "bound_ms_wordcount_wire": wc["chacha"]["bound_ms"],
+         "lanes_wordcount_wire": wc["chacha"]["lanes"],
          "max_abs_err": 0, "ms": wire["kernel_ms"], "call_ms": wire["call_ms"],
          "crypt_call_ms": crypt["call_ms"], "plain_ms": wire["plain_ms"],
          "bound_ms": wire["bound_ms"], "bound_by": wire["bound_by"],

@@ -30,13 +30,25 @@ The chunk is a Python loop that reads the halt flag after each round: one
 host synchronisation per executed round. That is the known cost of this
 slice's loop; the JAX program decides on the device instead.
 
-Carried state follows the REPLICATED contract: the state and aux are held
-once (no shard dim); `map_fn` and `reduce_fn` see them replicated, and
-`reduce_fn` returns per-shard (S, ...) values that it made identical with a
-collective (`mesh.psum`, as the paper's client redistributes the centres);
-the driver keeps shard 0's copy, as JAX's `out_specs=P()` does. `halt_fn`
-must depend only on replicated values. Sharded carried state is not part of
-this port yet: a sharded `state_specs` leaf raises NotImplementedError.
+Carried state has two tiers, chosen per leaf by `IterativeSpec.state_specs`
+(a tree of `P`s matching the state; None or a bare `P` broadcasts):
+
+  * REPLICATED leaf, `P()`: held once (no shard dim); `map_fn` and
+    `reduce_fn` see it replicated, and `reduce_fn` returns per-shard
+    (S, ...) values that it made identical with a collective (`mesh.psum`,
+    as the paper's client redistributes the centres); the driver keeps shard
+    0's copy, as JAX's `out_specs=P()` does. Aux follows the same rule.
+  * SHARDED leaf, `P(axis)`: kept per shard with its leading S dim across
+    rounds, (S, n / S, ...); `map_fn` and `reduce_fn` see each shard's local
+    part and `reduce_fn` returns the updated local parts. The caller's
+    `init_state` holds the global leaf (`mesh.shard` splits it) and the
+    result holds it global again (`mesh.unshard`), as the reference's host
+    gather does.
+
+`halt_fn` must depend only on replicated values: it sees every sharded leaf
+replaced by a guard whose every use raises a ValueError naming the leaf
+(the reference raises at trace time; the port, which does not trace, at the
+first `halt_fn` call, and the job returns no result).
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import default_hash, shuffle_round
-from repro_torch.tree import tree_flatten, tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 CAPACITY_FACTOR = 2.0  # headroom of the auto bucket capacity: ceil(n / R) * 2.0
 
@@ -76,8 +88,8 @@ class IterativeSpec:
     capacity: per-destination slots C; 0 -> auto (ceil(n_mapped / R) * 2.0).
     n_rounds: rounds of one `run_iterative_mapreduce` call.
     halt_fn(state, aux, round_index) -> bool scalar   [optional]
-    state_specs: None / P() (replicated) or a tree of them; P(axis) leaves
-        (sharded state) are not supported yet.
+    state_specs: None / P() (replicated) or P(axis) (sharded), or a tree of
+        them matching the state (module docstring).
     """
 
     map_fn: Callable
@@ -103,23 +115,127 @@ def resolve_chunk_growth(growth="auto") -> int:
     return val
 
 
-def _check_state_specs(spec: IterativeSpec, state) -> None:
+_STATE_MODES = ("replicated", "sharded")
+
+
+def resolve_state_mode(mode="auto") -> str:
+    """A carried-state layout selector as 'replicated' | 'sharded'.
+
+    'auto'/None is 'sharded', the reference's default; the port reads no
+    environment variable.
+    """
+    if mode in (None, "auto"):
+        return "sharded"
+    if mode not in _STATE_MODES:
+        raise ValueError(
+            f"carried-state mode must be one of {_STATE_MODES} or 'auto', got {mode!r}")
+    return mode
+
+
+def _resolve_state_specs(spec: IterativeSpec, state):
+    """(flat specs, flat is-sharded flags) in the state's flat leaf order.
+
+    None (the attribute or a leaf) means P(); a bare P broadcasts to every
+    leaf. Raises ValueError, before any round runs, when the tree does not
+    match the state's structure or holds a leaf that is not a P.
+    """
+    leaves, treedef = tree_flatten(state)
     specs = spec.state_specs
-    n_leaves = len(tree_flatten(state)[0])
     if specs is None or isinstance(specs, P):
-        flat = [specs] * n_leaves
+        flat = [P() if specs is None else specs] * len(leaves)
     else:
-        flat = tree_flatten(specs, is_leaf=lambda x: isinstance(x, P))[0]
-        if len(flat) != n_leaves:
-            raise ValueError("IterativeSpec.state_specs must match the carried "
-                             f"state's structure; got {specs!r}")
-    for p in flat:
-        if p is not None and not isinstance(p, P):
-            raise ValueError(f"state_specs leaves must be P(...) or None, got {p!r}")
-        if p is not None and any(a is not None for a in p):
-            raise NotImplementedError(
-                f"sharded carried state ({p!r}) is not ported yet: it arrives with "
-                "the sort slice (ROADMAP Queue 1 item 6); declare the leaf P()")
+        flat, spec_def = tree_flatten(specs, is_leaf=lambda x: x is None or isinstance(x, P))
+        if spec_def != treedef:
+            raise ValueError("IterativeSpec.state_specs must be a tree matching the "
+                             f"carried state's structure; got {specs!r}")
+        for i, p in enumerate(flat):
+            if p is not None and not isinstance(p, P):
+                raise ValueError("IterativeSpec.state_specs leaves must be P(...) "
+                                 f"(or None for replicated); leaf {i} is {p!r}")
+        flat = [P() if p is None else p for p in flat]
+    return flat, [any(a is not None for a in p) for p in flat]
+
+
+class _ShardedHaltGuard:
+    """Stand-in for a sharded state leaf in the state `halt_fn` sees.
+
+    Any use -- arithmetic, a torch or numpy call, attribute access,
+    iteration, truth -- raises a ValueError naming the leaf: a halt predicate
+    over shard-local data would let shards disagree about the next round.
+    """
+
+    def __init__(self, path: str, pspec):
+        object.__setattr__(self, "_path", path)
+        object.__setattr__(self, "_pspec", pspec)
+
+    def _halt_guard_raise(self, *_a, **_k):
+        raise ValueError(
+            f"IterativeSpec.halt_fn touched the SHARDED carried-state leaf "
+            f"state{self._path} (state_specs leaf {self._pspec!r}): the "
+            "replicated-halt contract requires halt_fn to be a pure "
+            "function of replicated values only (replicated state leaves, "
+            "aux, round index) -- a shard-varying predicate would deadlock "
+            "the mesh. Derive the halt signal from a replicated leaf or "
+            "from aux, or declare this leaf P() in state_specs.")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        operands = tree_flatten([list(args), kwargs or {}])[0]
+        next(a for a in operands if isinstance(a, cls))._halt_guard_raise()
+
+    def __getattr__(self, name):
+        self._halt_guard_raise()
+
+    def __repr__(self):
+        return f"_ShardedHaltGuard(state{self._path}: {self._pspec!r})"
+
+
+for _name in (
+    "__array__", "__bool__", "__int__", "__float__", "__index__", "__len__",
+    "__iter__", "__getitem__", "__neg__", "__pos__", "__abs__", "__invert__",
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
+    "__truediv__", "__rtruediv__", "__floordiv__", "__rfloordiv__", "__mod__",
+    "__rmod__", "__pow__", "__rpow__", "__matmul__", "__rmatmul__", "__and__",
+    "__rand__", "__or__", "__ror__", "__xor__", "__rxor__", "__lshift__",
+    "__rlshift__", "__rshift__", "__rrshift__", "__lt__", "__le__", "__gt__",
+    "__ge__", "__eq__", "__ne__", "__format__",
+):
+    setattr(_ShardedHaltGuard, _name, _ShardedHaltGuard._halt_guard_raise)
+
+
+class _StateLayout:
+    """Each carried leaf's tier, resolved once per job from `spec.state_specs`."""
+
+    def __init__(self, spec: IterativeSpec, state):
+        self.specs, self.sharded = _resolve_state_specs(spec, state)
+        self.paths = tree_paths(state)
+
+    def _per_leaf(self, tree, sharded_fn, replicated_fn):
+        leaves, treedef = tree_flatten(tree)
+        if len(leaves) != len(self.sharded):
+            raise ValueError(f"carried state has {len(leaves)} leaves, its state_specs "
+                             f"declare {len(self.sharded)}")
+        return tree_unflatten(treedef, [sharded_fn(x, i) if sh else replicated_fn(x, i)
+                                        for i, (x, sh) in enumerate(zip(leaves, self.sharded))])
+
+    def place(self, state, mesh):
+        """The caller's global state as carried: sharded leaves split over S."""
+        return self._per_leaf(state, lambda x, i: mesh.shard(x), lambda x, i: x)
+
+    def keep(self, new_state):
+        """reduce_fn's per-shard output as carried: shard 0's copy of replicated leaves."""
+        return self._per_leaf(new_state, lambda x, i: x, lambda x, i: x[0])
+
+    def for_halt(self, state):
+        """halt_fn's view: sharded leaves swapped for guards."""
+        if not any(self.sharded):
+            return state
+        return self._per_leaf(state, lambda x, i: _ShardedHaltGuard(self.paths[i], self.specs[i]),
+                              lambda x, i: x)
+
+    def gather(self, state, mesh):
+        """The carried state as the caller gets it: sharded leaves global again."""
+        return self._per_leaf(state, lambda x, i: mesh.unshard(x), lambda x, i: x)
 
 
 def _replica(tree):
@@ -127,7 +243,8 @@ def _replica(tree):
     return tree_map(lambda x: x[0], tree)
 
 
-def _round(spec: IterativeSpec, mesh, inputs, state, r: int, secure, coalesce, info: dict):
+def _round(spec: IterativeSpec, mesh, inputs, state, r: int, secure, coalesce, info: dict,
+           layout: _StateLayout):
     mk, mv = spec.map_fn(state, inputs, r)
     if spec.combine_fn is not None:
         mk, mv = spec.combine_fn(mk, mv)
@@ -139,11 +256,11 @@ def _round(spec: IterativeSpec, mesh, inputs, state, r: int, secure, coalesce, i
         mk, mv, mesh, hash_fn=spec.hash_fn, capacity=capacity, secure=secure,
         round_index=r, coalesce=coalesce)
     new_state, aux = spec.reduce_fn(state, flat_k, flat_v, valid, r)
-    return _replica(new_state), _replica(aux), dropped.sum()
+    return layout.keep(new_state), _replica(aux), dropped.sum()
 
 
 def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secure,
-               coalesce, info: dict):
+               coalesce, info: dict, layout: _StateLayout):
     """Up to n_rounds rounds; stops after the round whose halt_fn fires.
 
     Returns (state, [aux per executed round], [dropped per executed round],
@@ -152,10 +269,11 @@ def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secur
     auxes, drops = [], []
     for i in range(n_rounds):
         r = first_round + i
-        state, aux, dropped = _round(spec, mesh, inputs, state, r, secure, coalesce, info)
+        state, aux, dropped = _round(spec, mesh, inputs, state, r, secure, coalesce, info,
+                                     layout)
         auxes.append(aux)
         drops.append(dropped)
-        if spec.halt_fn is not None and bool(spec.halt_fn(state, aux, r)):
+        if spec.halt_fn is not None and bool(spec.halt_fn(layout.for_halt(state), aux, r)):
             return state, auxes, drops, i + 1, True
     return state, auxes, drops, n_rounds, False
 
@@ -164,9 +282,10 @@ def _prepare(spec, inputs, init_state, mesh, secure, chacha_impl, coalesce):
     if secure is not None:
         secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
     state = tree_map(lambda x: torch.as_tensor(x, device=mesh.device), init_state)
-    _check_state_specs(spec, state)
+    layout = _StateLayout(spec, state)
+    state = layout.place(state, mesh)
     inputs = tree_map(lambda x: mesh.shard(torch.as_tensor(x, device=mesh.device)), inputs)
-    return secure, state, inputs
+    return secure, state, inputs, layout
 
 
 def _warn_overflow(dropped, first_round: int, info: dict | None, stacklevel: int = 3):
@@ -197,11 +316,13 @@ def run_iterative_mapreduce(spec: IterativeSpec, inputs, init_state, mesh, secur
     tensor with a leading (n_rounds,) dim, plus (rounds_executed, halted)
     when `spec.halt_fn` is set; rounds after a halt are zero-filled.
     """
-    secure, state, inputs = _prepare(spec, inputs, init_state, mesh, secure,
-                                     chacha_impl, coalesce)
+    secure, state, inputs, layout = _prepare(spec, inputs, init_state, mesh, secure,
+                                             chacha_impl, coalesce)
     info: dict = {}
     state, auxes, drops, n_exec, halted = _run_chunk(
-        spec, mesh, inputs, state, spec.n_rounds, round_offset, secure, coalesce, info)
+        spec, mesh, inputs, state, spec.n_rounds, round_offset, secure, coalesce, info,
+        layout)
+    state = layout.gather(state, mesh)
     pad = spec.n_rounds - n_exec
     aux = tree_map(lambda *xs: torch.stack(list(xs) + [torch.zeros_like(xs[0])] * pad),
                    *auxes)
@@ -217,7 +338,8 @@ def run_iterative_mapreduce(spec: IterativeSpec, inputs, init_state, mesh, secur
 class RunUntilResult:
     """Outcome of a convergence-aware `run_until` job.
 
-    state:             final carried state (replicated tensors on the mesh's device).
+    state:             final carried state on the mesh's device, sharded leaves
+                       global again (`mesh.unshard`).
     aux:               per-round aux, leaves stacked over the executed rounds (numpy).
     dropped:           (rounds_executed,) overflow counts per executed round.
     rounds_executed:   rounds whose body ran (== keystream rounds consumed).
@@ -265,8 +387,8 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     if min_chunk < 1:
         raise ValueError(f"min_chunk must be >= 1, got {min_chunk}")
     max_chunk = min(max_chunk or max_rounds, max_rounds)
-    secure, state, inputs = _prepare(spec, inputs, init_state, mesh, secure,
-                                     chacha_impl, coalesce)
+    secure, state, inputs, layout = _prepare(spec, inputs, init_state, mesh, secure,
+                                             chacha_impl, coalesce)
     executed = dispatched = n_dispatches = 0
     halted = False
     auxes: list = []
@@ -276,7 +398,8 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     while executed < max_rounds and not halted:
         n = min(chunk, max_rounds - executed)
         state, a, d, n_exec, halted = _run_chunk(
-            spec, mesh, inputs, state, n, round_offset + executed, secure, coalesce, info)
+            spec, mesh, inputs, state, n, round_offset + executed, secure, coalesce, info,
+            layout)
         auxes += a
         drops += d
         n_dispatches += 1
@@ -290,6 +413,6 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     dropped = torch.stack(drops).cpu().numpy()
     if warn_on_overflow:
         _warn_overflow(dropped, round_offset, info, stacklevel=4)
-    return RunUntilResult(state=state, aux=aux, dropped=dropped, rounds_executed=executed,
+    return RunUntilResult(state=layout.gather(state, mesh), aux=aux, dropped=dropped, rounds_executed=executed,
                           rounds_dispatched=dispatched, n_dispatches=n_dispatches,
                           halted=halted)

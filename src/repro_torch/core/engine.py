@@ -10,7 +10,9 @@ Counterpart of `repro/core/engine.py`:
       └─ reduce_fn     per shard over received pairs ("reducer enclave")
 
 User functions take and return tensors with the leading shard dim and reach
-collectives through the `VirtualMesh` they close over.
+collectives through the `VirtualMesh` they close over. `run_mapreduce_until`
+repeats such a job through the iterative driver until its halt predicate
+fires.
 """
 
 from __future__ import annotations
@@ -99,3 +101,39 @@ def run_mapreduce(spec: MapReduceSpec, keys, values, mesh, secure=None,
     else:
         raise ValueError(f"out_specs must be 'replicated' or 'sharded', got {out_specs!r}")
     return out, dropped.sum()
+
+
+def run_mapreduce_until(spec: MapReduceSpec, keys, values, init_state, mesh, *, halt_fn,
+                        fold_fn=None, max_rounds: int = 16, secure=None,
+                        chacha_impl: str | None = None, coalesce: bool | None = None,
+                        min_chunk: int = 1, growth=2, max_chunk: int | None = None):
+    """Repeat a single-round MapReduce job until `halt_fn` says stop.
+
+    Lifts `spec` into the iterative driver (`repro_torch.core.driver.run_until`):
+    every round re-maps the same sharded (keys, values), reduces per shard,
+    folds the round's reduce output into the carried state with
+    `fold_fn(state, round_output)` (default: the output replaces the state),
+    then evaluates `halt_fn(state, round_output, round_index)` on the folded
+    state. Secure rounds draw disjoint keystreams as every driver round does.
+    `spec.reduce_fn` must end in a collective, and `fold_fn` must keep the
+    state replicated: the lifted job's state is `P()`.
+
+    Returns the driver's `RunUntilResult` (state, per-round aux = the raw
+    reduce outputs, rounds executed vs dispatched, halted).
+    """
+    # local import: the driver imports this module for default_hash
+    from repro_torch.core.driver import IterativeSpec, P, run_until
+
+    def map_fn(state, inputs, r):
+        return spec.map_fn(inputs["k"], inputs["v"])
+
+    def reduce_fn(state, rk, rv, valid, r):
+        out = spec.reduce_fn(rk, rv, valid)
+        return (out if fold_fn is None else fold_fn(state, out)), out
+
+    ispec = IterativeSpec(map_fn=map_fn, reduce_fn=reduce_fn, combine_fn=spec.combine_fn,
+                          hash_fn=spec.hash_fn, capacity=spec.capacity, halt_fn=halt_fn,
+                          state_specs=P())
+    return run_until(ispec, {"k": keys, "v": values}, init_state, mesh, secure=secure,
+                     max_rounds=max_rounds, min_chunk=min_chunk, growth=growth,
+                     max_chunk=max_chunk, chacha_impl=chacha_impl, coalesce=coalesce)

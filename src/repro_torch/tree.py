@@ -46,6 +46,25 @@ def tree_unflatten(treedef, leaves):
     return build(treedef)
 
 
+def tree_paths(tree) -> list[str]:
+    """Each leaf's path in flattening order, as `jax.tree_util.keystr` writes
+    it: `['key']` for a dict entry, `[i]` for a list or tuple item."""
+    paths: list[str] = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        else:
+            paths.append(path)
+
+    walk(tree, "")
+    return paths
+
+
 def tree_map(fn: Callable, tree, *rest):
     """Apply `fn` leafwise over one or more trees of the same structure."""
     leaves, treedef = tree_flatten(tree)

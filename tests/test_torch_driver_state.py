@@ -1,0 +1,361 @@
+"""The port's driver: sharded carried state and `run_mapreduce_until`.
+
+Held against the JAX package (`repro.core.driver`, `repro.core.engine`) on
+the same inputs, at R=1 in process and R=8 in a subprocess with 8 forced
+host devices: sharded and replicated layouts of a resident per-reducer leaf
+(int32, float32, bfloat16; halting early and running the full budget) give
+identical bits, rounds and halt flags in both packages; the lifted
+single-round job gives the reference's rounds exactly and its state within
+rtol 1e-5 (float sums are taken in another order).
+
+The halt guard is held to its documented contract (`src/repro/core/driver.py`:
+any use of a sharded leaf in `halt_fn` raises a ValueError naming it), not
+to the reference's own test of it, which fails on this tree.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax import lax
+
+from conftest import run_in_subprocess
+from repro.compat import make_mesh
+from repro.core import driver as jdrv
+from repro.core.engine import identity_hash as jidentity
+from repro.crypto import chacha as jch
+from repro_torch import VirtualMesh
+from repro_torch.convert import secure_config, to_numpy, to_tensor
+from repro_torch.core import driver as tdrv
+from repro_torch.core import sort as ts
+from repro_torch.core.engine import MapReduceSpec, identity_hash, run_mapreduce_until
+
+P = tdrv.P
+KEY = bytes(range(32))
+NONCE = b"\x0e" * 12
+COUNTER0 = 4
+C = 8  # columns of the resident leaf
+N_KEYS = 16  # keys per shard of the lifted job
+
+_REF = """
+import numpy as np, jax, jax.numpy as jnp
+from jax import lax
+from jax.sharding import PartitionSpec as P
+from repro.compat import make_mesh
+from repro.core.driver import IterativeSpec, run_until
+from repro.core.engine import MapReduceSpec, identity_hash, run_mapreduce_until
+from repro.core.shuffle import SecureShuffleConfig
+from repro.crypto import chacha
+R, C, N = {r}, {c}, {n}
+mesh = make_mesh((R,), ("data",), devices=jax.devices()[:R])
+cfg = SecureShuffleConfig(key_words=chacha.key_to_words({key!r}),
+                          nonce_words=chacha.nonce_to_words({nonce!r}), counter0={c0})
+out = {{}}
+
+def make_spec(dtype, sharded, halt_at):
+    def map_fn(state, inputs, r):
+        # every shard sends one unit item to every reducer
+        return jnp.arange(R, dtype=jnp.int32), {{"v": jnp.ones((R,), jnp.float32)}}
+
+    def reduce_fn(state, rk, rv, valid, r):
+        got = jnp.sum(jnp.where(valid, rv["v"], 0.0))
+        tot = state["tot"] + lax.psum(got, "data")
+        inc = (got * (1 + lax.axis_index("data"))).astype(dtype)
+        if sharded:
+            big = state["big"] + inc
+        else:
+            row = state["big"][lax.axis_index("data")] + inc
+            big = lax.all_gather(row, "data")
+        return {{"big": big, "tot": tot}}, {{"tot": tot}}
+
+    halt_fn = None if halt_at is None else (lambda state, aux, r: aux["tot"] >= halt_at)
+    return IterativeSpec(map_fn=map_fn, reduce_fn=reduce_fn, hash_fn=identity_hash,
+                         capacity=R, n_rounds=1, halt_fn=halt_fn,
+                         state_specs={{"big": P("data") if sharded else P(), "tot": P()}})
+
+for dname, dtype in (("int32", jnp.int32), ("float32", jnp.float32), ("bfloat16", jnp.bfloat16)):
+    for hname, halt_at in (("halt", 3.0 * R * R), ("full", None)):
+        for sharded in (False, True):
+            big0 = np.load({init_path!r})[dname]  # bfloat16 travels as its uint16 bits
+            big0 = big0.view(jnp.bfloat16) if dname == "bfloat16" else big0
+            init = {{"big": jnp.asarray(big0), "tot": jnp.float32(0.0)}}
+            res = run_until(make_spec(dtype, sharded, halt_at), {{"x": jnp.zeros((R,))}}, init,
+                            mesh, max_rounds=5, min_chunk=2)
+            key = f"sweep_{{dname}}_{{hname}}_{{int(sharded)}}"
+            big = np.asarray(res.state["big"])
+            out[key + "_big"] = big.view(np.uint16) if dname == "bfloat16" else big
+            out[key + "_tot"] = np.asarray(res.state["tot"])
+            out[key + "_rounds"] = np.array([res.rounds_executed, res.rounds_dispatched,
+                                             int(res.halted)])
+
+vals = np.load({init_path!r})["vals"]
+spec = MapReduceSpec(map_fn=lambda k, v: (k % 4, v),
+                     reduce_fn=lambda rk, rv, valid: lax.psum(
+                         jnp.sum(jnp.where(valid, rv, 0.0)), "data"),
+                     hash_fn=identity_hash, capacity=N)
+keys = jnp.arange(N * R, dtype=jnp.int32)
+for name, sec, fold, halt in (
+        ("fold_secure", cfg, lambda s, o: s + o, lambda s, a, r: s >= 2.5 * N * R),
+        ("fold_plain", None, lambda s, o: s + 0.5 * o, lambda s, a, r: r >= 3),
+        ("replace_secure", cfg, None, lambda s, a, r: r >= 2)):
+    res = run_mapreduce_until(spec, keys, jnp.asarray(vals), jnp.float32(0.0), mesh,
+                              halt_fn=halt, fold_fn=fold, max_rounds=6, secure=sec)
+    out[name + "_state"] = np.asarray(res.state)
+    out[name + "_aux"] = np.asarray(res.aux)
+    out[name + "_rounds"] = np.array([res.rounds_executed, res.rounds_dispatched,
+                                      res.n_dispatches, int(res.halted)])
+np.savez({path!r}, **out)
+print("OK")
+"""
+
+_DTYPES = {"int32": (np.int32, torch.int32), "float32": (np.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(r: int) -> dict:
+    rng = np.random.default_rng(r)
+    out = {name: rng.integers(0, 50, (r, C)).astype(np.dtype(dt))
+           for name, (dt, _) in _DTYPES.items()}
+    out["vals"] = rng.normal(size=N_KEYS * r).astype(np.float32)
+    return out
+
+
+@pytest.fixture(scope="module", params=[1, 8])
+def ref(request, tmp_path_factory):
+    r = request.param
+    d = tmp_path_factory.mktemp(f"driver_state_ref{r}")
+    np.savez(d / "in.npz", **{k: (v.view(np.uint16) if k == "bfloat16" else v)
+                              for k, v in _inputs(r).items()})
+    code = _REF.format(r=r, c=C, n=N_KEYS, key=KEY, nonce=NONCE, c0=COUNTER0,
+                       init_path=str(d / "in.npz"), path=str(d / "ref.npz"))
+    if r == 1:
+        exec(code, {})
+    else:
+        run_in_subprocess(code, devices=r)
+    return r, dict(np.load(d / "ref.npz"))
+
+
+def _cfg():
+    return secure_config(jch.key_to_words(KEY), jch.nonce_to_words(NONCE), COUNTER0)
+
+
+def _resident_spec(mesh, dtype, sharded: bool, halt_at):
+    """The reference sweep's job in the port: a resident (R, C) leaf, one row
+    per reducer, and a replicated running total."""
+    r = mesh.n_shards
+
+    def map_fn(state, inputs, rnd):
+        keys = torch.arange(r, dtype=torch.int32).expand(r, r)
+        return keys, {"v": torch.ones((r, r))}
+
+    def reduce_fn(state, rk, rv, valid, rnd):
+        got = torch.where(valid, rv["v"], 0.0).sum(dim=1)  # (S,)
+        tot = state["tot"] + mesh.psum(got)
+        inc = (got * (1 + mesh.axis_index())).to(dtype)
+        if sharded:
+            big = state["big"] + inc[:, None, None]  # (S, 1, C): each shard's row
+        else:
+            big = mesh.all_gather(state["big"][mesh.axis_index()] + inc[:, None])
+        return {"big": big, "tot": tot}, {"tot": tot}
+
+    halt_fn = None if halt_at is None else (lambda state, aux, rnd: aux["tot"] >= halt_at)
+    return tdrv.IterativeSpec(map_fn=map_fn, reduce_fn=reduce_fn, hash_fn=identity_hash,
+                              capacity=r, halt_fn=halt_fn,
+                              state_specs={"big": P("data") if sharded else P(), "tot": P()})
+
+
+@pytest.mark.parametrize("dname", list(_DTYPES))
+def test_sharded_and_replicated_layouts_match_jax(ref, dname):
+    r, want = ref
+    mesh = VirtualMesh(r, "cpu")
+    init_big = _inputs(r)[dname]
+    for hname, halt_at in (("halt", 3.0 * r * r), ("full", None)):
+        outs = []
+        for sharded in (False, True):
+            init = {"big": to_tensor(init_big, "cpu"), "tot": torch.tensor(0.0)}
+            res = tdrv.run_until(_resident_spec(mesh, _DTYPES[dname][1], sharded, halt_at),
+                                 {"x": np.zeros(r, np.float32)}, init, mesh, max_rounds=5,
+                                 min_chunk=2)
+            key = f"sweep_{dname}_{hname}_{int(sharded)}"
+            big = to_numpy(res.state["big"])
+            assert big.shape == (r, C)  # the global leaf, gathered once
+            np.testing.assert_array_equal(big, want[key + "_big"])
+            assert float(res.state["tot"]) == float(want[key + "_tot"])
+            assert [res.rounds_executed, res.rounds_dispatched,
+                    int(res.halted)] == list(want[key + "_rounds"])
+            outs.append(big)
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_run_mapreduce_until_matches_jax(ref):
+    r, want = ref
+    mesh = VirtualMesh(r, "cpu")
+    vals = _inputs(r)["vals"]
+    spec = MapReduceSpec(map_fn=lambda k, v: (k % 4, v),
+                         reduce_fn=lambda rk, rv, valid: mesh.psum(
+                             torch.where(valid, rv, 0.0).sum(dim=1)),
+                         hash_fn=identity_hash, capacity=N_KEYS)
+    keys = np.arange(N_KEYS * r, dtype=np.int32)
+    for name, sec, fold, halt in (
+            ("fold_secure", _cfg(), lambda s, o: s + o, lambda s, a, rnd: s >= 2.5 * N_KEYS * r),
+            ("fold_plain", None, lambda s, o: s + 0.5 * o, lambda s, a, rnd: rnd >= 3),
+            ("replace_secure", _cfg(), None, lambda s, a, rnd: rnd >= 2)):
+        res = run_mapreduce_until(spec, keys, vals, torch.tensor(0.0), mesh, halt_fn=halt,
+                                  fold_fn=fold, max_rounds=6, secure=sec)
+        assert [res.rounds_executed, res.rounds_dispatched, res.n_dispatches,
+                int(res.halted)] == list(want[name + "_rounds"]), name
+        np.testing.assert_allclose(float(res.state), float(want[name + "_state"]), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(res.aux, want[name + "_aux"], rtol=1e-5, atol=1e-5)
+
+
+def test_run_mapreduce_until_engine_entry():
+    """The reference's own engine-entry case (tests/test_run_until.py)."""
+    n = 16
+    mesh = VirtualMesh(1, "cpu")
+    spec = MapReduceSpec(map_fn=lambda k, v: (k % 4, torch.ones(k.shape)),
+                         reduce_fn=lambda rk, rv, valid: mesh.psum(
+                             torch.where(valid, rv, 0.0).sum(dim=1)),
+                         hash_fn=identity_hash, capacity=n)
+    res = run_mapreduce_until(spec, np.arange(n, dtype=np.int32), np.zeros(n, np.float32),
+                              torch.tensor(0.0), mesh,
+                              halt_fn=lambda state, aux, r: state >= 40.0,
+                              fold_fn=lambda state, out: state + out, max_rounds=10)
+    assert res.rounds_executed == 3 and res.halted and float(res.state) == 48.0
+    np.testing.assert_array_equal(res.aux, np.full((3,), 16.0, np.float32))
+
+
+# --- layout resolution ---------------------------------------------------------------------
+
+
+def _dummy_spec(**kw):
+    def never(*a):
+        raise AssertionError("no round may run")
+
+    return tdrv.IterativeSpec(map_fn=never, reduce_fn=never, **kw)
+
+
+def test_resolve_state_mode_ignores_environment(monkeypatch):
+    monkeypatch.setenv("REPRO_STATE_SPECS", "replicated")
+    assert tdrv.resolve_state_mode("auto") == "sharded"
+    assert tdrv.resolve_state_mode(None) == "sharded"
+    assert tdrv.resolve_state_mode("replicated") == "replicated"
+    assert tdrv.resolve_state_mode("sharded") == "sharded"
+    with pytest.raises(ValueError, match="carried-state mode"):
+        tdrv.resolve_state_mode("sideways")
+
+
+def test_state_specs_none_and_bare_spec_broadcast():
+    state = {"a": torch.zeros(2), "b": {"c": torch.zeros(3)}}
+    assert tdrv._resolve_state_specs(_dummy_spec(), state) == ([P(), P()], [False, False])
+    assert tdrv._resolve_state_specs(_dummy_spec(state_specs=P("data")), state)[1] == [True, True]
+    assert tdrv._resolve_state_specs(_dummy_spec(state_specs=P()), state)[1] == [False, False]
+    mixed = _dummy_spec(state_specs={"a": P("data"), "b": {"c": None}})
+    assert tdrv._resolve_state_specs(mixed, state) == ([P("data"), P()], [True, False])
+
+
+@pytest.mark.parametrize("specs,match", [({"a": P()}, "state_specs"),
+                                         ({"a": P(), "b": "data"}, r"P\(\.\.\.\)"),
+                                         ([P(), P()], "state_specs")])
+def test_state_specs_mismatch_raises_before_any_round(specs, match):
+    state = {"a": torch.zeros(2), "b": torch.zeros(4)}
+    with pytest.raises(ValueError, match=match):
+        tdrv.run_until(_dummy_spec(state_specs=specs), {"x": np.zeros(4, np.float32)}, state,
+                       VirtualMesh(2, "cpu"))
+
+
+def test_sharded_leaf_is_split_for_the_job_and_gathered_after():
+    """map_fn/reduce_fn see each shard's part (S, n / S, ...); the result
+    holds the global leaf; the caller's init_state is left as it was."""
+    mesh = VirtualMesh(4, "cpu")
+    seen = []
+
+    def map_fn(state, inputs, r):
+        seen.append(tuple(state["rows"].shape))
+        return torch.zeros((4, 1), dtype=torch.int32), {"v": torch.ones((4, 1))}
+
+    def reduce_fn(state, rk, rv, valid, r):
+        rows = state["rows"] + mesh.axis_index()[:, None, None].to(torch.float32)
+        return {"rows": rows}, {"n": mesh.psum(valid.sum(dim=1))}
+
+    spec = tdrv.IterativeSpec(map_fn=map_fn, reduce_fn=reduce_fn, capacity=1, n_rounds=2,
+                              state_specs={"rows": P("data")})
+    init = {"rows": torch.zeros((8, 3))}
+    state, aux, dropped = tdrv.run_iterative_mapreduce(spec, {"x": np.zeros(4, np.float32)},
+                                                       init, mesh)
+    assert seen == [(4, 2, 3), (4, 2, 3)]
+    expect = 2.0 * torch.arange(4, dtype=torch.float32).repeat_interleave(2)[:, None].expand(8, 3)
+    assert torch.equal(state["rows"], expect)
+    assert torch.equal(init["rows"], torch.zeros((8, 3)))
+    assert aux["n"].tolist() == [4, 4]
+
+
+# --- the halt guard ------------------------------------------------------------------------
+
+_USES = {
+    "torch_sum": lambda x: torch.sum(x),
+    "torch_stack": lambda x: torch.stack([x, x]),
+    "method": lambda x: x.sum(),
+    "arith": lambda x: x + 1.0,
+    "compare": lambda x: x > 0,
+    "bool": lambda x: bool(x),
+    "index": lambda x: x[0],
+    "numpy": lambda x: np.asarray(x),
+    "len": lambda x: len(x),
+}
+
+
+@pytest.mark.parametrize("use", list(_USES))
+def test_halt_fn_touching_sharded_sort_table_raises(use):
+    """Per the documented contract: the job stops at the first halt_fn call
+    with a ValueError naming state['sorted'], and returns no result."""
+    mesh = VirtualMesh(2, "cpu")
+    base = ts.make_sample_sort_spec(mesh, 8, halt_total=16)
+    spec = tdrv.IterativeSpec(map_fn=base.map_fn, reduce_fn=base.reduce_fn,
+                              hash_fn=base.hash_fn, capacity=base.capacity,
+                              halt_fn=lambda state, aux, r: _USES[use](state["sorted"]),
+                              state_specs=base.state_specs)
+    v = np.random.default_rng(0).random(16).astype(np.float32)
+    init = {"edges": torch.from_numpy(ts.initial_edges(float(v.min()), float(v.max()), 2)),
+            "sorted": torch.full((2, 16), torch.inf), "counts": torch.zeros(2)}
+    with pytest.raises(ValueError, match=r"SHARDED carried-state leaf state\['sorted'\]"):
+        tdrv.run_until(spec, {"v": v}, init, mesh, secure=_cfg(), max_rounds=3)
+
+
+def test_halt_fn_on_replicated_leaves_still_works_alongside_sharded():
+    """Replicated leaves, aux and the round index stay usable in halt_fn beside
+    a sharded leaf, as in the reference (the same job in both packages)."""
+    def jspec():
+        def map_fn(state, inputs, r):
+            return jnp.zeros((4,), jnp.int32), {"v": jnp.ones((4,), jnp.float32)}
+
+        def reduce_fn(state, rk, rv, valid, r):
+            got = lax.psum(jnp.sum(jnp.where(valid, rv["v"], 0.0)), "data")
+            return {"big": state["big"] + got, "tot": state["tot"] + got}, {"t": got}
+
+        return jdrv.IterativeSpec(
+            map_fn=map_fn, reduce_fn=reduce_fn, hash_fn=jidentity, capacity=4,
+            halt_fn=lambda state, aux, r: state["tot"] + aux["t"] * 0 >= 8.0,
+            state_specs={"big": jdrv.P("data"), "tot": jdrv.P()})
+
+    want = jdrv.run_until(jspec(), {"x": jnp.zeros((4,))},
+                          {"big": jnp.zeros((1, 4)), "tot": jnp.float32(0.0)},
+                          make_mesh((1,), ("data",)), max_rounds=6)
+    mesh = VirtualMesh(1, "cpu")
+
+    def reduce_fn(state, rk, rv, valid, r):
+        got = mesh.psum(torch.where(valid, rv["v"], 0.0).sum(dim=1))
+        return {"big": state["big"] + got[:, None, None], "tot": state["tot"] + got}, {"t": got}
+
+    spec = tdrv.IterativeSpec(
+        map_fn=lambda state, inputs, r: (torch.zeros((1, 4), dtype=torch.int32),
+                                         {"v": torch.ones((1, 4))}),
+        reduce_fn=reduce_fn, hash_fn=identity_hash, capacity=4,
+        halt_fn=lambda state, aux, r: state["tot"] + aux["t"] * 0 >= 8.0,
+        state_specs={"big": P("data"), "tot": P()})
+    res = tdrv.run_until(spec, {"x": np.zeros(4, np.float32)},
+                         {"big": torch.zeros((1, 4)), "tot": torch.tensor(0.0)}, mesh,
+                         max_rounds=6)
+    assert res.halted and res.rounds_executed == want.rounds_executed == 2
+    np.testing.assert_array_equal(res.state["big"].numpy(), np.asarray(want.state["big"]))

@@ -6,6 +6,11 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
+Sort, grep and wordcount (secure) run on the card and on the CPU plain path
+on the same inputs, at small and odd sizes with one wire on each side of the
+ChaCha kernel's lanes threshold, and must agree bit for bit; a warm sort or
+grep round must not synchronise before the driver's halt read.
+
 Tolerances: ChaCha20 output exact (kernel == plain version bit for bit,
 on row-aligned and packed wires, both kernel designs), one launch and no
 synchronising call per crypt of a warm wire layout; k-means assignments equal to the plain
@@ -251,3 +256,132 @@ def test_kmeans_kernel_refuses_shapes_out_of_range(cuda):
         kmeans_assign(pts, torch.zeros((436, 64), device=cuda))
     with pytest.raises(ValueError, match="D <= 64"):
         kmeans_assign(torch.zeros((1, 10, 65), device=cuda), torch.zeros((4, 65), device=cuda))
+
+
+# --- sort, grep and wordcount on the card against the CPU plain path --------------------
+
+WIRE_LANES_LIMIT = 512 * 132  # kernel.lanes_for: four lanes up to one wave of an H100
+
+
+def _cfg():
+    from repro_torch.convert import secure_config
+
+    return secure_config(np.arange(8, dtype=np.uint32) * 7, np.arange(3, dtype=np.uint32), 5)
+
+
+def _wire_blocks(s: int, cap: int, leaves: int = 2) -> int:
+    """Keystream blocks of a round's wire: S·R rows of `leaves` int32/f32
+    leaves of `cap` words each."""
+    return s * s * leaves * -(-cap // 16)
+
+
+def _sort_values(n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    v = rng.lognormal(0.0, 1.0, n).astype(np.float32)
+    v[rng.permutation(n)[:4]] = np.array([0.0, -0.0, 0.0, -0.0], np.float32)
+    v[rng.permutation(n)[:5]] = np.float32(1.25)
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,n_loc", [(3, 13), (8, 16384)], ids=["lanes4", "lanes1"])
+def test_sample_sort_card_matches_cpu(cuda, s, n_loc):
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.core.sort import initial_edges, make_sample_sort_spec, sample_sort
+    from repro_torch.kernels.chacha20 import kernel
+
+    v = _sort_values(s * n_loc)
+    assert (kernel.lanes_for(_wire_blocks(s, n_loc), cuda) == 4) == (
+        _wire_blocks(s, n_loc) <= WIRE_LANES_LIMIT)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = VirtualMesh(s, dev)
+        before = kernel.launches
+        o, c, d = sample_sort(v, mesh, secure=_cfg(), n_rounds=5)
+        spec = make_sample_sort_spec(mesh, n_loc, halt_total=v.size, shard_state=False)
+        init = {"edges": torch.from_numpy(initial_edges(float(v.min()), float(v.max()), s)),
+                "sorted": torch.full((s, s * n_loc), torch.inf), "counts": torch.zeros(s)}
+        res = driver.run_until(spec, {"v": v}, init, mesh, secure=_cfg(), max_rounds=5)
+        launched = kernel.launches - before
+        outs[dev] = (o, c, d, res.rounds_executed, res.rounds_dispatched, res.halted,
+                     res.state["edges"].cpu().numpy())
+        if dev == "cuda":
+            assert launched == 2 * (len(d) + res.rounds_executed)
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        a, b = np.asarray(a).reshape(-1), np.asarray(b).reshape(-1)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    np.testing.assert_array_equal(outs["cuda"][0].view(np.uint32),
+                                  np.sort(v, kind="stable").view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk,rounds", [(3, 7, 5), (8, 16384, 2)], ids=["lanes4", "lanes1"])
+def test_grep_card_matches_cpu(cuda, s, chunk, rounds):
+    from repro_torch import VirtualMesh
+    from repro_torch.core.grep import grep_count
+
+    rng = np.random.default_rng(chunk)
+    t = (np.minimum(rng.zipf(1.2, s * chunk * rounds), 300) - 2).astype(np.int32)  # -1 pads
+    pats = [0, 4, 0, 17, 299, 2]
+    limit = int(np.isin(t, pats).sum()) // 2
+    for mm in (None, limit):
+        got = {dev: grep_count(t, pats, VirtualMesh(s, dev), secure=_cfg(), n_rounds=rounds,
+                               max_matches=mm) for dev in ("cuda", "cpu")}
+        np.testing.assert_array_equal(got["cuda"][0].cpu().numpy(), got["cpu"][0].numpy())
+        np.testing.assert_array_equal(got["cuda"][1], got["cpu"][1])
+        np.testing.assert_array_equal(got["cuda"][2], got["cpu"][2])
+    assert got["cuda"][1].shape[0] < rounds or rounds == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,vocab", [(8, 65536), (8, 2**17 + 1)], ids=["lanes4", "lanes1"])
+def test_wordcount_card_matches_cpu(cuda, s, vocab):
+    from repro_torch import VirtualMesh
+    from repro_torch.core.wordcount import wordcount
+    from repro_torch.kernels.chacha20 import kernel
+
+    cap = -(-vocab // s)
+    assert (kernel.lanes_for(_wire_blocks(s, cap), cuda) == 4) == (vocab == 65536)
+    rng = np.random.default_rng(vocab)
+    t = (rng.zipf(1.1, s * 4099) % vocab).astype(np.int32)
+    got = {dev: wordcount(t, vocab, VirtualMesh(s, dev), secure=_cfg())[0].cpu().numpy()
+           for dev in ("cuda", "cpu")}
+    np.testing.assert_array_equal(got["cuda"], got["cpu"])
+    np.testing.assert_array_equal(got["cuda"], np.bincount(t, minlength=vocab).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["grep", "sort"])
+def test_round_syncs_only_at_the_halt_read(cuda, workload):
+    """A warm secure round runs clean under set_sync_debug_mode("error"); only
+    the driver's halt read, after it, synchronises."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.core.grep import make_grep_spec
+    from repro_torch.core.sort import initial_edges, make_sample_sort_spec
+
+    s = 8
+    mesh = VirtualMesh(s, cuda)
+    rng = np.random.default_rng(3)
+    if workload == "grep":
+        spec = make_grep_spec([1, 2, 3], 64, mesh, max_matches=10**6)
+        inputs = {"t": rng.integers(0, 8, s * 64 * 4).astype(np.int32)}
+        init = {"hits": torch.zeros(3), "cursor": torch.tensor(0)}
+    else:
+        v = rng.lognormal(0.0, 1.0, s * 64).astype(np.float32)
+        spec = make_sample_sort_spec(mesh, 64, halt_total=v.size)
+        inputs = {"v": v}
+        init = {"edges": torch.from_numpy(initial_edges(float(v.min()), float(v.max()), s)),
+                "sorted": torch.full((s, s * 64), torch.inf), "counts": torch.zeros(s)}
+    sec, state, inp, layout = driver._prepare(spec, inputs, init, mesh, _cfg(), None, None)
+    driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, aux, _ = driver._round(spec, mesh, inp, state, 1, sec, None, {}, layout)
+        flag = spec.halt_fn(layout.for_halt(st), aux, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(flag) in (True, False)

@@ -189,11 +189,29 @@ def test_overflow_warned_once_with_global_rounds():
     np.testing.assert_array_equal(res.dropped, [4, 4, 4])  # 2 per shard, summed
 
 
-def test_sharded_state_raises_not_implemented():
+def test_sharded_state_leaf_is_carried_per_shard():
+    """A P(axis) leaf beside the replicated centres: each shard carries its own
+    part across rounds and the job returns the global leaf."""
     mesh = VirtualMesh(2, "cpu")
-    spec = tdrv.IterativeSpec(map_fn=None, reduce_fn=None, state_specs={"a": tdrv.P("data")})
-    with pytest.raises(NotImplementedError, match="sort slice"):
-        tdrv.run_until(spec, {"x": np.ones(4, np.float32)}, {"a": torch.zeros(2)}, mesh)
+    pts = _points()
+    base = tkm.make_kmeans_iterative_spec(K, mesh, threshold=0.0)
+
+    def reduce_fn(state, rk, rv, valid, r):
+        centers, aux = base.reduce_fn(state["c"], rk, rv, valid, r)
+        return {"c": centers, "n": state["n"] + valid.sum(dim=1)[:, None]}, aux
+
+    spec = tdrv.IterativeSpec(map_fn=lambda st, inp, r: base.map_fn(st["c"], inp, r),
+                              reduce_fn=reduce_fn, hash_fn=base.hash_fn,
+                              capacity=base.capacity,
+                              state_specs={"c": tdrv.P(), "n": tdrv.P("data")})
+    res = tdrv.run_until(spec, {"p": pts, "w": np.ones(N, np.float32)},
+                         {"c": pts[:K], "n": torch.zeros(2, dtype=torch.int64)}, mesh,
+                         secure=_cfg(), max_rounds=3)
+    plain = tdrv.run_until(base, {"p": pts, "w": np.ones(N, np.float32)}, pts[:K], mesh,
+                           secure=_cfg(), max_rounds=3)
+    assert torch.equal(res.state["c"], plain.state)
+    # each shard owns K/2 centres and receives their partials from both sources
+    assert res.state["n"].tolist() == [3 * K] * 2
 
 
 def test_farthest_init_and_step_ref_match_jax():

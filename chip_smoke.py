@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs ten phases, each printing one JSON line:
+then runs eleven phases, each printing one JSON line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -17,7 +17,10 @@ then runs ten phases, each printing one JSON line:
                  one thread per block); on the main path's packed wire, card
                  == CPU plain version; each design's device time by
                  torch.profiler (`kernel_ms`) and the wrapper-inclusive time
-                 by CUDA events (`call_ms`)
+                 by CUDA events (`call_ms`); the round id read from device
+                 memory (`round_dev`) == the by-value round bit for bit at
+                 rounds 0, 1, 2**31, 2**32-1 on both designs, and its time
+                 (`kernel_ms_round_dev`)
   crypt_call     the shuffle's crypt call on the main path's wire: warm call
                  time (host clock to a synchronise), device operations and
                  synchronising calls per crypt (asserted: 1 and 0, and the two
@@ -34,7 +37,9 @@ then runs ten phases, each printing one JSON line:
                  (bound_ms) and 3xTF32 on the tensor cores (bound_tc_ms)
   kmeans_fit     secure k-means, 4,194,304 x 64 points, K=256, 8 virtual
                  shards, to the paper's threshold; kernel launches counted on
-                 this run alone; plaintext fit identical bit for bit
+                 this run alone; plaintext fit identical bit for bit; the
+                 same fit through make_kmeans_runner (CUDA graphs of one
+                 round) equal bit for bit, cold and warm times, idle share
   parity_small   the same fit at N=4096, K=8, D=4 on the card and on the CPU
                  (plain versions), and one fixed wire encrypted on both
   sort           secure sample_sort of 2**24 lognormal f32 values, 8 shards,
@@ -52,10 +57,24 @@ then runs ten phases, each printing one JSON line:
                  job halts early, one sync a round; the same figures
   wordcount      secure wordcount of the same tokens: counts == np.bincount
                  exactly, plaintext == secure; ms per job, wire, ChaCha time
+  serve          the secure job service (8 shards, one RunnerCache,
+                 max_concurrent=3): a cold k-means job of 3,000,000 points
+                 (bucket 4,194,304), warm jobs of 4,194,304 and 2,500,000
+                 points (0 misses, no new capture; the full one == kmeans_fit
+                 bit for bit), then k-means, sort (2**24 values) and grep
+                 (2**26 tokens) together and then serially on a fresh service
+                 (all warm, equal bit for bit, sort == np.sort, grep ==
+                 numpy); latencies, misses, chunks, round bases, cache stats
+                 with captures, ms per round per kind, the idle share of a
+                 profiled warm job, per kind a warm chunk's ms, syncs, host
+                 launch calls and device operations, k-means copy-in/out
+                 ms, pool bytes, peak memory, and the kernels' launches on
+                 the path by profiler
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; the ChaCha20 kernel's launches on each
                  path (k-means, sort, grep, wordcount), each counted from 0
-                 just before that path's run
+                 just before that path's run, and on the serve path (by
+                 profiler: replayed graphs bypass the wrappers' counters)
 
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero. It needs a CUDA card and the
@@ -221,18 +240,34 @@ def phase_chacha(dev):
         key, nonce = rng.integers(0, 2**32, 8), rng.integers(0, 2**32, 3)
         args = (x, table, key, nonce, int(rng.integers(0, 2**32)), nid, crow)
         y_ref = cr.chacha20_xor_packed_ref(*args)
-        res = {"rows": rows, "blocks": blocks, "bit_exact": True}
+        res = {"rows": rows, "blocks": blocks, "bit_exact": True, "round_dev_bit_exact": True}
         for lanes in (4, 1):
             y = ck.chacha20_xor_packed_cuda(*args, lanes=lanes)
             torch.cuda.synchronize()
             check(torch.equal(y, y_ref), f"chacha20 kernel (lanes={lanes}) != plain at {label}")
             res[f"kernel_ms_lanes{lanes}"] = kernel_device_ms(
                 lambda: ck.chacha20_xor_packed_cuda(*args, lanes=lanes), "chacha20_xor_packed", 20)
+            # the round id read from device memory: the by-value round's bits
+            for rnd in (0, 1, 2**31, 2**32 - 1):
+                xored = np.asarray(nonce, np.uint64).astype(np.uint32)
+                xored[1] ^= np.uint32(rnd)
+                rd = u32([rnd], dev)
+                got = ck.chacha20_xor_packed_cuda(x, table, key, nonce, args[4], nid, crow,
+                                                  round_dev=rd, lanes=lanes)
+                want = ck.chacha20_xor_packed_cuda(x, table, key, xored, args[4], nid, crow,
+                                                   lanes=lanes)
+                check(torch.equal(got, want) and (rnd or torch.equal(got, y)),
+                      f"chacha20 round_dev (lanes={lanes}, round {rnd}) != by value at {label}")
+            res[f"kernel_ms_round_dev_lanes{lanes}"] = kernel_device_ms(
+                lambda: ck.chacha20_xor_packed_cuda(*args, round_dev=rd, lanes=lanes),
+                "chacha20_xor_packed", 20)
         n_blocks = rows * blocks
         nbytes = 2 * x.numel() * 4 + table.words.numel() * 4 + 2 * rows * 4
+        lanes = ck.lanes_for(rows * blocks, x.device)
         res.update({
-            "lanes": ck.lanes_for(rows * blocks, x.device),
-            "kernel_ms": res[f"kernel_ms_lanes{ck.lanes_for(rows * blocks, x.device)}"],
+            "lanes": lanes,
+            "kernel_ms": res[f"kernel_ms_lanes{lanes}"],
+            "kernel_ms_round_dev": res[f"kernel_ms_round_dev_lanes{lanes}"],
             # the same bytes through a plain elementwise XOR: what moving them costs
             "xor_copy_ms": kernel_device_ms(lambda: torch.bitwise_xor(x, 5), "", 20),
             "call_ms": cuda_ms(lambda: ck.chacha20_xor_packed_cuda(*args), reps),
@@ -503,10 +538,10 @@ def round_counts(driver, spec, inputs, init_state, mesh, secure):
     """(device operations, synchronising calls) of one warm executed round as
     the driver runs it: map, shuffle, reduce, then the halt read when the
     spec has a halt."""
-    sec, state, inp, layout = driver._prepare(spec, inputs, init_state, mesh, secure, None, None)
+    inp, state, layout = driver._place(spec, mesh, inputs, init_state)
 
     def one_round():
-        st, aux, _ = driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout)
+        st, aux, _ = driver._round(spec, mesh, inp, state, 0, secure, None, {}, layout)
         if spec.halt_fn is None:
             return None
         return bool(spec.halt_fn(st, aux, 0))
@@ -564,6 +599,7 @@ def phase_kmeans_fit(dev, points):
     check(torch.equal(prof[0].centers, sec.centers), "secure fit not repeatable")
     warm_sec = min(sec_s1, sec_s2)
     warm_plain = min(plain_s1, plain_s2)
+    graph = graph_fit(dev, points, mesh, sec)
     res = {"phase": "kmeans_fit", "n": N_POINTS, "k": K, "d": D, "shards": SHARDS,
            "n_iter": sec.n_iter, "rounds_executed": rounds,
            "rounds_dispatched": sec.n_rounds_dispatched, "n_dispatches": sec.n_dispatches,
@@ -579,9 +615,42 @@ def phase_kmeans_fit(dev, points):
            "wire_bytes_per_round": recs[0]["wire_bytes"] * SHARDS,
            "keystream_blocks_per_round_per_shard": recs[0]["keystream_blocks"],
            "inertia": sec.inertia, "last_shifts": sec.center_shift[-3:],
-           "launches": launches, "secure_equals_plain": True}
+           "launches": launches, "secure_equals_plain": True, "graph": graph}
     emit(res)
     return res
+
+
+def graph_fit(dev, points, mesh, eager):
+    """The same secure fit through `make_kmeans_runner(...)`: CUDA graphs of
+    one round, captured by the first (cold) fit; warm fits in turns with the
+    eager fit's figures beside them, one profiled. Equal to the eager fit bit
+    for bit."""
+    from repro_torch.core.kmeans import kmeans_fit, make_kmeans_runner, paper_threshold
+
+    runner = make_kmeans_runner(mesh, K, secure=_secure_cfg(), threshold=paper_threshold(points),
+                                rounds_per_dispatch=ROUNDS_PER_DISPATCH)
+
+    def fit():
+        return kmeans_fit(points, K, mesh, runner=runner, max_iter=MAX_ITER)
+
+    cold, cold_s = timed(fit)
+    check(torch.equal(cold.centers, eager.centers) and cold.n_iter == eager.n_iter
+          and cold.center_shift == eager.center_shift, "graph-runner fit != eager fit")
+    _, g1 = timed(fit)
+    prof, busy_ms, top = _profiled(lambda: timed(fit))
+    g2 = prof[1]
+    check(torch.equal(prof[0].centers, eager.centers), "graph-runner fit not repeatable")
+    (_, syncs) = _count_syncs(fit)
+    runners = list(runner.runners.values())
+    return {"first_fit_s": cold_s, "fit_s": min(g1, g2), "fit_s_runs": [g1, g2],
+            "ms_per_round": 1e3 * min(g1, g2) / cold.n_iter, "n_iter": cold.n_iter,
+            "rounds_dispatched": cold.n_rounds_dispatched, "n_dispatches": cold.n_dispatches,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * g2),
+            "top_device_ops": top, "syncs_per_fit": syncs,
+            "chunk_sizes": sorted(runner.runners),
+            "captures": sum(r.captures for r in runners),
+            "pool_bytes": [r.pool_bytes for r in runners], "equals_eager": True}
 
 
 def phase_parity_small(dev):
@@ -965,6 +1034,221 @@ def phase_wordcount(dev, tokens_np, tokens):
     return res
 
 
+# serve: chunk sizes fixed per kind, so every job of a kind replays one runner
+SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
+_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                      "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def phase_serve(dev, tokens_np, tokens):
+    """The secure job service on 8 virtual shards, one shared RunnerCache,
+    max_concurrent=3: a cold k-means job (3,000,000 of the main path's points,
+    bucket 4,194,304), warm ones of 4,194,304 and 2,500,000 points (0 misses,
+    no new capture; the full one equal to kmeans_fit bit for bit), then
+    k-means, sort and grep together, then the same three one at a time on a
+    fresh service sharing the cache (all warm; equal bit for bit; sort ==
+    np.sort, grep == numpy)."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.core.kmeans import generate_points, kmeans_fit, paper_threshold
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.serve import RunnerCache, SecureJobService
+
+    pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)
+    points = torch.from_numpy(pts_np).to(dev)
+    del pts_np
+    values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
+    values = torch.from_numpy(values_np).to(dev)
+    patterns = np.random.default_rng(GREP_SEED).choice(
+        np.arange(63, 4096), GREP_PATTERNS, replace=False).astype(np.int32)
+    want_hits = np.bincount(tokens_np, minlength=VOCAB)[patterns].astype(np.float32)
+    mesh = VirtualMesh(SHARDS, dev)
+    cfg = _secure_cfg()
+    cache = RunnerCache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.launches = kk.launches = 0
+
+    def km(n):
+        return ("kmeans", (points[:n], K), {"max_rounds": MAX_ITER, "min_chunk": SERVE_CHUNK,
+                                             "max_chunk": SERVE_CHUNK})
+
+    mix = [km(N_POINTS),
+           ("sort", (values,), {"max_rounds": SORT_ROUNDS, "balance": SORT_BALANCE,
+                                "min_chunk": SERVE_CHUNK, "max_chunk": SERVE_CHUNK}),
+           ("grep", (tokens, patterns), {"n_rounds": GREP_ROUNDS, "min_chunk": SERVE_GREP_CHUNK,
+                                         "max_chunk": SERVE_GREP_CHUNK})]
+
+    def serve(jobs, max_concurrent=3):
+        """Submit `jobs` to a fresh service on the shared cache; (handles, results)."""
+        with SecureJobService(mesh, secure=cfg, cache=cache, max_concurrent=max_concurrent) as svc:
+            hs = [getattr(svc, "submit_" + kind)(*a, **kw) for kind, a, kw in jobs]
+            return hs, [h.result(timeout=600) for h in hs]
+
+    def job(h, r):
+        rounds = r.get("n_iter", r.get("rounds"))
+        run_s = h.finished_at - h.started_at
+        return {"kind": h.kind, "n": h.n, "bucket": h.bucket, "round_base": h.round_base,
+                "misses": h.runner_misses, "chunks": h.chunks, "rounds": rounds,
+                "latency_s": h.latency_s, "queue_s": h.queue_s, "chunk_s": h.chunk_s,
+                "after_chunks_s": run_s - sum(h.chunk_s),  # the result's copy back
+                "ms_per_round": 1e3 * run_s / rounds}
+
+    (hc,), (rc,) = serve([km(SERVE_COLD_N)])
+    check(hc.bucket == N_POINTS and not hc.warm, "the cold job's bucket / misses")
+    captures = cache.captures()
+    warm_h, warm_r = [], []
+    for n in (N_POINTS, SERVE_SMALL_N):
+        (h,), (r,) = serve([km(n)])
+        check(h.warm and cache.captures() == captures, f"the warm {n}-point job captured")
+        warm_h.append(h)
+        warm_r.append(r)
+    eager = kmeans_fit(points, K, mesh, secure=cfg, max_iter=MAX_ITER,
+                       rounds_per_dispatch=ROUNDS_PER_DISPATCH)
+    check(np.array_equal(warm_r[0]["centers"], eager.centers.cpu().numpy())
+          and warm_r[0]["n_iter"] == eager.n_iter, "served k-means != kmeans_fit")
+    # two warm jobs in one profiler session: the first pays the tracer's
+    # start-up on the host; the second's run time is the window, and the
+    # device busy time is half the session's (the same job twice)
+    prof, busy_ms, top = _profiled(lambda: [serve([km(N_POINTS)]) for _ in range(2)])
+    ph = prof[1][0][0]
+    check(all(np.array_equal(p[1][0]["centers"], warm_r[0]["centers"]) for p in prof),
+          "profiled job differs")
+
+    together_h, together_r = serve(mix, 3)
+    serial_h, serial_r = serve(mix, 1)
+    check(all(h.warm for h in serial_h), "a serial job was not warm")
+    for a, b in zip(together_r, serial_r):
+        check(a.keys() == b.keys() and all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                                           for k in a), "together != serial")
+    check(np.array_equal(serial_r[1]["sorted"].view(np.uint32),
+                         np.sort(values_np, kind="stable").view(np.uint32)),
+          "served sort != np.sort")
+    check(np.array_equal(serial_r[2]["counts"], want_hits), "served grep != numpy")
+    # the serve path's launches, by profiler (the graphs' kernels never pass
+    # through the wrappers' counters), over an all-warm serial run
+    _, names = _device_events(lambda: serve(mix, 1))
+    rounds = {h.kind: r.get("n_iter", r.get("rounds")) for h, r in zip(serial_h, serial_r)}
+    launches = {"chacha20": sum("chacha20" in n for n, _ in names),
+                "kmeans_assign": sum("kmeans_assign_kernel" in n for n, _ in names)}
+    check(launches["chacha20"] == 2 * sum(rounds.values())
+          and launches["kmeans_assign"] == rounds["kmeans"],
+          f"serve path launches {launches} for rounds {rounds}")
+    wrapper_launches = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
+    peak = torch.cuda.max_memory_allocated()
+    km_view = cache.view(spec_id=("kmeans", K, D, "auto", N_POINTS), mesh=mesh, secure=cfg)
+    km_inputs = {"p": points, "w": torch.ones((N_POINTS,), device=dev)}
+    km_init = {"c": points[:K].clone(),
+               "thr": torch.full((), paper_threshold(points), device=dev)}
+    chunk_by_kind = {"kmeans": chunk_times(driver, km_view, SERVE_CHUNK, km_inputs, km_init)}
+    chunk_by_kind["kmeans"].update(copy_figures(driver, km_view, mesh, km_inputs, km_init))
+    cap = SORT_N // SHARDS
+    lo, hi = float(values_np.min()), float(values_np.max())
+    span = max(hi - lo, 1e-6)
+    edges = np.asarray(lo + span * np.arange(SHARDS + 1) / SHARDS, np.float32)
+    edges[-1] = hi + 1e-3 * span
+    chunk_by_kind["sort"] = chunk_times(driver, cache.view(
+        spec_id=("sort", SHARDS, cap, float(SORT_BALANCE), "sharded", SORT_N), mesh=mesh,
+        secure=cfg), SERVE_CHUNK, {"v": values},
+        {"edges": torch.from_numpy(edges).to(dev),
+         "sorted": torch.full((SHARDS, SHARDS * cap), torch.inf, device=dev),
+         "counts": torch.zeros((SHARDS,), device=dev),
+         "total": torch.full((), float(SORT_N), device=dev)})
+    chunk_by_kind["grep"] = chunk_times(driver, cache.view(
+        spec_id=("grep", patterns.tobytes(), N_TOKENS // SHARDS // GREP_ROUNDS, None, N_TOKENS),
+        mesh=mesh, secure=cfg), SERVE_GREP_CHUNK, {"t": tokens},
+        {"hits": torch.zeros((GREP_PATTERNS,), device=dev),
+         "cursor": torch.zeros((), dtype=torch.int64, device=dev)})
+    res = {"phase": "serve", "shards": SHARDS, "max_concurrent": 3,
+           "cold": job(hc, rc), "warm": [job(h, r) for h, r in zip(warm_h, warm_r)],
+           "warm_equals_kmeans_fit": True,
+           "profiled_warm_job": {"latency_s": [p[0][0].latency_s for p in prof],
+                                 "device_busy_ms": None if busy_ms is None else busy_ms / 2,
+                                 "device_idle_share": None if busy_ms is None else
+                                 1 - busy_ms / 2 / (1e3 * (ph.finished_at - ph.started_at)),
+                                 "top_device_ops": top},
+           "together": [job(h, r) for h, r in zip(together_h, together_r)],
+           "serial": [job(h, r) for h, r in zip(serial_h, serial_r)],
+           "together_equals_serial": True, "sort_equals_numpy": True,
+           "grep_equals_numpy": True,
+           "ms_per_round": {h.kind: job(h, r)["ms_per_round"]
+                            for h, r in zip(serial_h, serial_r)},
+           "cache": cache.stats(),
+           "runners": [{"kind": k[0][0], "bucket": k[0][-1], "n_rounds": k[-1],
+                        "pool_bytes": r.pool_bytes}
+                       for k, r in zip(cache.keys(), cache._resident())],
+           "chunk_by_kind": chunk_by_kind, "launches_by_profiler": launches,
+           "wrapper_launches": wrapper_launches, "peak_memory_bytes": peak}
+    emit(res)
+    return res
+
+
+def chunk_times(driver, view, n_rounds, inputs, init):
+    """A warm chunk of a served kind's cached runner, called directly from
+    its first round: host ms per chunk (to a synchronise; the least of four
+    calls made in turns with the eager chunk's) and per executed round
+    beside the eager chunk's (equal bit for bit), synchronising calls, host
+    launch calls and device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner = view.get_or_build(n_rounds, lambda: None)
+    check(isinstance(runner, driver._GraphRunner), "no captured runner in the cache")
+    eager = driver._EagerRunner(runner.spec, runner.mesh, runner.secure, n_rounds,
+                                runner.coalesce)
+    runner(inputs, init, 0)
+    want = eager(inputs, init, 0)
+    graph_s, eager_s = [], []
+    for first, second in ((runner, eager), (eager, runner)) * 2:  # in turns
+        for fn in (first, second):
+            out_, secs = timed(lambda: fn(inputs, init, 0))
+            (graph_s if fn is runner else eager_s).append(secs)
+            if fn is runner:
+                out = out_
+    secs, eager_secs = min(graph_s), min(eager_s)
+    check(out[3:] == want[3:] and all(torch.equal(a, b) for a, b in zip(
+        driver.tree_flatten(out[:3])[0], driver.tree_flatten(want[:3])[0])),
+        "graph chunk != eager chunk")
+    syncs = _count_syncs(lambda: runner(inputs, init, 0))[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner(inputs, init, 0)
+        torch.cuda.synchronize()
+    events = prof.events()
+    return {"n_rounds": n_rounds, "rounds_executed": out[3], "chunk_ms": 1e3 * secs,
+            "ms_per_round": 1e3 * secs / out[3], "eager_chunk_ms": 1e3 * eager_secs,
+            "chunk_ms_runs": [1e3 * x for x in graph_s],
+            "eager_chunk_ms_runs": [1e3 * x for x in eager_s],
+            "equals_eager": True, "syncs_per_chunk": syncs,
+            "host_launch_calls_per_chunk": sum(
+                any(e.name.startswith(c) for c in _HOST_LAUNCH_CALLS) for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU),
+            "device_ops_per_chunk": sum(e.device_type == torch.autograd.DeviceType.CUDA
+                                        for e in events),
+            "pool_bytes": runner.pool_bytes}
+
+
+def copy_figures(driver, view, mesh, inputs, init):
+    """Copy-in (state only; state and inputs) and copy-out ms of a warm chunk
+    of the served k-means runner, by CUDA events; the eager round's device
+    operations and syncs are in phase crypt_call."""
+    from repro_torch.tree import tree_map
+
+    runner = view.get_or_build(SERVE_CHUNK, lambda: None)
+    st, = runner._statics.values()
+    src = driver.tree_flatten(inputs)[0]
+    inp, carried, _ = driver._place(runner.spec, mesh, inputs, init)
+
+    def load_all():
+        st._src = []  # as if another job's inputs were resident
+        st.load(src, inp, carried)
+
+    load_all()
+    return {"copy_in_state_ms": cuda_ms(lambda: st.load(src, inp, carried), 10),
+            "copy_in_state_and_inputs_ms": cuda_ms(load_all, 10),
+            "copy_out_ms": cuda_ms(lambda: tree_map(torch.clone, st.state), 10)}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -996,6 +1280,8 @@ def main(argv=None) -> int:
     tokens = torch.from_numpy(tokens_np).to(dev)
     grp = phase_grep(dev, tokens_np, tokens)
     wc = phase_wordcount(dev, tokens_np, tokens)
+    torch.cuda.empty_cache()
+    srv = phase_serve(dev, tokens_np, tokens)
 
     rounds = fit["rounds_executed"]
     wire, big = cha["wire"], cha["64MiB"]
@@ -1009,6 +1295,9 @@ def main(argv=None) -> int:
          "replaces_function": "chacha20_xor_row_lanes",
          "launches": fit["launches"]["chacha20"],
          "launches_by_path": by_path,
+         "launches_serve_by_profiler": srv["launches_by_profiler"]["chacha20"],
+         "ms_round_dev": wire["kernel_ms_round_dev"],
+         "ms_round_dev_64MiB": big["kernel_ms_round_dev"],
          "launches_per_round": {"kmeans": by_path["kmeans"] / rounds,
                                 "sort": by_path["sort"] / srt["rounds_executed"],
                                 "grep": by_path["grep"] / grp["rounds_executed"],
@@ -1037,6 +1326,7 @@ def main(argv=None) -> int:
          "replaces_function": "kmeans_assign_tiles",
          "launches": fit["launches"]["kmeans_assign"],
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
+         "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
          "bound_tc_ms": km["bound_tc_ms"], "bound_tc_by": km["bound_tc_by"],

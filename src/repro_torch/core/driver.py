@@ -26,9 +26,32 @@ What matches the reference is the observable contract of its halt-aware
     indices, each of which keys its own keystream (nonce word 1).
   * Overflow is summarized once per job with global round indices.
 
-The chunk is a Python loop that reads the halt flag after each round: one
-host synchronisation per executed round. That is the known cost of this
-slice's loop; the JAX program decides on the device instead.
+Runners (the serving path). A chunk runs through a runner,
+`runner(inputs, state, round_offset) -> (state, aux, dropped,
+rounds_executed, halted)`, built by `make_iterative_runner` and held by a
+runner cache (`run_until(runners=...)`: a dict of chunk size -> runner, or a
+keyed `get_or_build` view of `repro_torch.serve.RunnerCache`) in place of
+the reference's jitted program:
+
+  * On a CUDA mesh the runner is a captured CUDA graph of ONE round (one
+    per shape of inputs and state), replayed up to n_rounds times per chunk
+    (`_GraphRunner`). The host writes each round's id into a device scalar
+    with `fill_`; the graph derives the keystream's round bits from it on
+    the card (the ChaCha kernel reads them from device memory), and the
+    host reads the halt flag after each replay: one synchronisation per executed round, as in the
+    eager loop, but one graph launch and one fill per round in place of
+    about a hundred launches. A graph of a whole chunk would need every
+    round inside it to be skippable on the card (a CUDA conditional IF node,
+    `torch.cuda.CUDAGraph.begin_capture_to_if_node`), and the PyTorch build
+    on the card this was written for (2.11) lacks that API; so the chunk is
+    a host loop over one-round replays. There is no fallback between the
+    two designs and no eager fallback on the card.
+  * On a CPU mesh the runner is the eager chunk (`_EagerRunner`), chosen by
+    the mesh's device, so the CPU tests drive the same cache contract.
+  * With `runners=None` every chunk runs the eager loop, which reads the
+    halt flag after each round: a graph replayed once would pay its capture
+    and save nothing, so the uncached entry points (`kmeans_fit`,
+    `sample_sort`, `grep_count` without a runner) stay eager.
 
 Carried state has two tiers, chosen per leaf by `IterativeSpec.state_specs`
 (a tree of `P`s matching the state; None or a bare `P` broadcasts):
@@ -48,12 +71,14 @@ Carried state has two tiers, chosen per leaf by `IterativeSpec.state_specs`
 `halt_fn` must depend only on replicated values: it sees every sharded leaf
 replaced by a guard whose every use raises a ValueError naming the leaf
 (the reference raises at trace time; the port, which does not trace, at the
-first `halt_fn` call, and the job returns no result).
+first `halt_fn` call -- in a graph runner, in the warm-up round before its
+capture -- and the job returns no result).
 """
 
 from __future__ import annotations
 
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -61,6 +86,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import default_hash, shuffle_round
+from repro_torch.core.shuffle import wire_accounting
+from repro_torch.crypto.chacha import MASK32, to_word_bits
+from repro_torch.device import pinned_constants
 from repro_torch.tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 CAPACITY_FACTOR = 2.0  # headroom of the auto bucket capacity: ceil(n / R) * 2.0
@@ -243,8 +271,11 @@ def _replica(tree):
     return tree_map(lambda x: x[0], tree)
 
 
-def _round(spec: IterativeSpec, mesh, inputs, state, r: int, secure, coalesce, info: dict,
-           layout: _StateLayout):
+def _round(spec: IterativeSpec, mesh, inputs, state, r, secure, coalesce, info: dict,
+           layout: _StateLayout, r_wire=None):
+    """One round: map, shuffle, reduce. `r` is what the callbacks get (a host
+    int, or a device scalar in a graph runner); `r_wire` (default `r`) keys
+    the shuffle's keystream."""
     mk, mv = spec.map_fn(state, inputs, r)
     if spec.combine_fn is not None:
         mk, mv = spec.combine_fn(mk, mv)
@@ -254,7 +285,7 @@ def _round(spec: IterativeSpec, mesh, inputs, state, r: int, secure, coalesce, i
     info["capacity"], info["capacity_auto"] = capacity, not spec.capacity
     flat_k, flat_v, valid, dropped = shuffle_round(
         mk, mv, mesh, hash_fn=spec.hash_fn, capacity=capacity, secure=secure,
-        round_index=r, coalesce=coalesce)
+        round_index=r if r_wire is None else r_wire, coalesce=coalesce)
     new_state, aux = spec.reduce_fn(state, flat_k, flat_v, valid, r)
     return layout.keep(new_state), _replica(aux), dropped.sum()
 
@@ -278,14 +309,272 @@ def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secur
     return state, auxes, drops, n_rounds, False
 
 
-def _prepare(spec, inputs, init_state, mesh, secure, chacha_impl, coalesce):
-    if secure is not None:
-        secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
-    state = tree_map(lambda x: torch.as_tensor(x, device=mesh.device), init_state)
+def _with_knobs(secure, chacha_impl, coalesce):
+    """The secure config with the keystream impl and wire layout in force."""
+    return None if secure is None else secure.with_impl(chacha_impl).with_coalesce(coalesce)
+
+
+def _on_device(tree, mesh):
+    return tree_map(lambda x: torch.as_tensor(x, device=mesh.device), tree)
+
+
+def _place(spec: IterativeSpec, mesh, inputs, state):
+    """The caller's global inputs and state as a round takes them: on the
+    mesh's device, inputs and sharded state leaves split over the shards.
+    Returns (inputs, carried state, layout)."""
+    state = _on_device(state, mesh)
     layout = _StateLayout(spec, state)
-    state = layout.place(state, mesh)
     inputs = tree_map(lambda x: mesh.shard(torch.as_tensor(x, device=mesh.device)), inputs)
-    return secure, state, inputs, layout
+    return inputs, layout.place(state, mesh), layout
+
+
+def _stacked(rows: list, n_rounds: int):
+    """Per-round values stacked to (n_rounds, ...), zero past the executed ones."""
+    pad = n_rounds - len(rows)
+    return torch.stack(list(rows) + [torch.zeros_like(rows[0])] * pad)
+
+
+# --- runners: what a runner cache holds ----------------------------------------
+
+
+class _EagerRunner:
+    """The chunk as a Python loop over eager rounds (the CPU mesh's runner,
+    and `run_until`'s chunk without a runner cache): the halt flag is read
+    after every round."""
+
+    captures = 0
+    pool_bytes = 0
+
+    def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None):
+        self.spec, self.mesh, self.secure = spec, mesh, secure
+        self.n_rounds, self.coalesce = n_rounds, coalesce
+        self.trace_info: dict = {}
+
+    def __call__(self, inputs, state, round_offset: int = 0):
+        inputs, carried, layout = _place(self.spec, self.mesh, inputs, state)
+        carried, auxes, drops, n_exec, halted = _run_chunk(
+            self.spec, self.mesh, inputs, carried, self.n_rounds, int(round_offset),
+            self.secure, self.coalesce, self.trace_info, layout)
+        aux = tree_map(lambda *xs: _stacked(xs, self.n_rounds), *auxes)
+        return (layout.gather(carried, self.mesh), aux, _stacked(drops, self.n_rounds), n_exec,
+                halted)
+
+
+def _shape_key(inputs, carried) -> tuple:
+    """The shapes and dtypes a captured round is tied to."""
+    return tuple((tuple(t.shape), t.dtype) for t in tree_flatten([inputs, carried])[0])
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes of device memory a CUDA graph memory pool holds."""
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class _Statics:
+    """The static buffers that a job's graph runners share for one set of
+    input and state shapes, whatever their chunk size: a copy of the inputs,
+    the carried state, the round id and the chunk's first round (int64
+    scalars), the halt flag, the aux template, the device constants the
+    rounds read (`pinned_constants`: block tables, exchange ids, kept alive
+    here for as long as the graphs replay) and the graphs' memory pool. A
+    graph reads and writes only these (and its own aux rows), so the
+    runners of one spec copy each input once per job and replay from one
+    pool. Like the graphs, they serve one thread at a time."""
+
+    def __init__(self, src, inputs, carried, layout, device, round_offset: int):
+        self.layout = layout
+        self.inputs = tree_map(torch.clone, inputs)
+        self._src = [(weakref.ref(t), t._version) for t in src]  # the copy's sources
+        self.state = tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
+                              carried)
+        # the warm-up round before the first capture runs the job's own first
+        # round: its keystream is that round's, which the first replay redraws
+        self.r = torch.full((), int(round_offset), dtype=torch.int64, device=device)
+        self.base = self.r.clone()
+        self.halt = torch.zeros((), dtype=torch.bool, device=device)
+        self.constants: dict = {}
+        self.aux = self.dropped = self.pool = None
+
+    def _holds(self, src) -> bool:
+        """Whether the input copy is of these tensors, unmodified since."""
+        return len(src) == len(self._src) and all(
+            ref() is t and t._version == version for t, (ref, version) in zip(src, self._src))
+
+    def load(self, src, inputs, carried) -> None:
+        """Copy the caller's state, and its inputs (`src`: the caller's
+        tensors, `inputs`: as sharded) unless the copy is already of them,
+        into the static buffers. The copy's sources are tracked by weak
+        reference: a source that died, or changed in place, is copied again."""
+        if not self._holds(src):
+            for dst, x in zip(tree_flatten(self.inputs)[0], tree_flatten(inputs)[0]):
+                dst.copy_(x)
+            self._src = [(weakref.ref(t), t._version) for t in src]
+        for dst, x in zip(tree_flatten(self.state)[0], tree_flatten(carried)[0]):
+            dst.copy_(x)
+
+
+@dataclass
+class _Captured:
+    """One captured round of a runner for one shape key."""
+
+    graph: Any
+    aux: Any  # (n_rounds, ...) rows per aux leaf
+    dropped: Any  # (n_rounds,)
+    records: list  # the shuffle's wire records made at capture
+    pool_bytes: int  # bytes its capture added to the (shared) pool
+
+
+class _GraphRunner:
+    """A CUDA graph of ONE round, replayed up to `n_rounds` times per chunk.
+
+    A graph is tied to the shapes of the inputs and state it was captured
+    on: the runner keeps one per shape key (`_Captured`), each reading and
+    writing the static buffers of that key (`_Statics`: inputs, carried
+    state, round id, halt flag, device constants), which the runners of the
+    same job at other chunk sizes share (`share_with`), plus aux and dropped
+    rows of its own. Before the first capture of a key one eager warm-up
+    round runs on new statics, at the call's own first round: it builds the
+    kernels, fills and pins the device constants, fixes the aux shapes and
+    runs the halt guard (a sharded leaf touched by `halt_fn` raises its
+    ValueError there, and the runner keeps nothing of the key). Per round
+    the host writes the round id into a device scalar with `fill_` (a launch
+    carrying the value, not a copy from host memory that a later write could
+    race) and replays; inside the graph the keystream's u32 round bits and
+    the aux row (the round id less the chunk's first, written once per
+    chunk) come from that scalar, and the callbacks get it as `r`. After
+    each replay the host reads the halt flag: one synchronising call per
+    executed round, and none in a chunk without `halt_fn`. A call copies the
+    caller's state, and its inputs when they are not the last call's, into
+    the static buffers, and returns fresh tensors: another job's chunk may
+    replay this graph next. The shuffle's wire record made at capture is
+    re-emitted for every executed round.
+    """
+
+    def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None,
+                 share_with=None):
+        self.spec, self.mesh, self.secure = spec, mesh, secure
+        self.n_rounds, self.coalesce = n_rounds, coalesce
+        self.trace_info: dict = {}
+        # shape key -> _Statics, shared by a job's runners
+        self._statics: dict = {} if share_with is None else share_with._statics
+        self._captured: dict = {}  # shape key -> _Captured
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this runner captured (one per shape key)."""
+        return len(self._captured)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Bytes its captures added to the shared memory pools."""
+        return sum(c.pool_bytes for c in self._captured.values())
+
+    def _body(self, st: _Statics):
+        """One round on the static buffers: (state, aux, dropped, halt)."""
+        spec, dev = self.spec, self.mesh.device
+        r_wire = to_word_bits(st.r & MASK32).reshape(1)
+        state, aux, dropped = _round(spec, self.mesh, st.inputs, st.state, st.r, self.secure,
+                                     self.coalesce, self.trace_info, st.layout, r_wire=r_wire)
+        halt = None
+        if spec.halt_fn is not None:
+            halt = spec.halt_fn(st.layout.for_halt(state), aux, st.r)
+            if not isinstance(halt, torch.Tensor):
+                halt = torch.full((), bool(halt), device=dev)
+            halt = halt.to(torch.bool).reshape(())
+        return state, aux, dropped, halt
+
+    def _statics_for(self, key, src, inputs, carried, layout, round_offset: int) -> _Statics:
+        st = self._statics.get(key)
+        if st is None:
+            st = _Statics(src, inputs, carried, layout, self.mesh.device, round_offset)
+            with wire_accounting.isolated(), pinned_constants(st.constants):
+                _, aux, dropped, _ = self._body(st)  # the warm-up: no round of the job
+            st.aux, st.dropped = aux, dropped  # templates of the per-round rows
+            self._statics[key] = st  # only once the warm-up went through
+        return st
+
+    def _capture(self, st: _Statics) -> _Captured:
+        aux_rows = tree_map(lambda a: a.new_zeros((self.n_rounds,) + tuple(a.shape)), st.aux)
+        drop_rows = st.dropped.new_zeros((self.n_rounds,))
+        before = 0 if st.pool is None else _pool_bytes(st.pool)
+        graph = torch.cuda.CUDAGraph()
+        with wire_accounting.isolated() as records, pinned_constants(st.constants), \
+                torch.cuda.graph(graph, pool=st.pool, capture_error_mode="thread_local"):
+            state, aux, dropped, halt = self._body(st)
+            row = (st.r - st.base).reshape(1)
+            for dst, src in zip(tree_flatten(st.state)[0], tree_flatten(state)[0]):
+                dst.copy_(src)
+            for dst, src in zip(tree_flatten(aux_rows)[0], tree_flatten(aux)[0]):
+                dst.index_copy_(0, row, src.unsqueeze(0))
+            drop_rows.index_copy_(0, row, dropped.reshape(1))
+            if halt is not None:
+                st.halt.copy_(halt)
+        st.pool = graph.pool()
+        return _Captured(graph, aux_rows, drop_rows, list(records),
+                         _pool_bytes(st.pool) - before)
+
+    def __call__(self, inputs, state, round_offset: int = 0):
+        spec, mesh = self.spec, self.mesh
+        inputs = _on_device(inputs, mesh)
+        src = tree_flatten(inputs)[0]
+        inputs, carried, layout = _place(spec, mesh, inputs, state)
+        key = _shape_key(inputs, carried)
+        st = self._statics_for(key, src, inputs, carried, layout, int(round_offset))
+        cap = self._captured.get(key)
+        if cap is None:
+            cap = self._captured[key] = self._capture(st)
+        st.load(src, inputs, carried)
+        st.base.fill_(int(round_offset))
+        n_exec, halted = 0, False
+        for i in range(self.n_rounds):
+            st.r.fill_(int(round_offset) + i)
+            cap.graph.replay()
+            n_exec += 1
+            if spec.halt_fn is not None and bool(st.halt):
+                halted = True
+                break
+        wire_accounting.emit(cap.records * n_exec)
+        out = layout.gather(tree_map(torch.clone, st.state), mesh)
+        aux = tree_map(lambda a: _zero_past(a, n_exec), cap.aux)
+        return out, aux, _zero_past(cap.dropped, n_exec), n_exec, halted
+
+
+def _zero_past(rows, n_exec: int):
+    """A fresh copy of per-round rows with the rows past `n_exec` zeroed."""
+    out = rows.clone()
+    out[n_exec:] = 0
+    return out
+
+
+def make_iterative_runner(spec: IterativeSpec, mesh, secure=None, n_rounds: int | None = None,
+                          *, chacha_impl: str | None = None, coalesce: bool | None = None,
+                          share_with=None):
+    """The chunk runner a runner cache holds: built once, called many times.
+
+    Returns runner(inputs, state, round_offset=0) -> (state, aux, dropped,
+    rounds_executed, halted), `inputs` and `state` as `run_until` takes them
+    (global leaves) and the state returned the same way; aux leaves and
+    dropped carry a leading (n_rounds,) dim, zero past rounds_executed.
+    `runner.trace_info` holds the resolved capacity after the first call,
+    `runner.captures` the CUDA graphs it captured and `runner.pool_bytes`
+    their private pool's bytes. `n_rounds` defaults to `spec.n_rounds`.
+
+    On a CUDA mesh the runner is a CUDA graph of one round per shape of
+    inputs and state (`_GraphRunner`); on a CPU mesh it is the eager chunk.
+    The mesh's device chooses, so the cache contract runs the same on both.
+    `share_with`, a runner built from the same spec, mesh, secure and knobs
+    for another chunk size, lends its static buffers and memory pool
+    (`_Statics`).
+    """
+    secure = _with_knobs(secure, chacha_impl, coalesce)
+    n = spec.n_rounds if n_rounds is None else int(n_rounds)
+    if n < 1:
+        raise ValueError(f"n_rounds must be >= 1, got {n}")
+    if mesh.device.type == "cuda":
+        return _GraphRunner(spec, mesh, secure, n, coalesce, share_with)
+    return _EagerRunner(spec, mesh, secure, n, coalesce)
 
 
 def _warn_overflow(dropped, first_round: int, info: dict | None, stacklevel: int = 3):
@@ -310,25 +599,17 @@ def _warn_overflow(dropped, first_round: int, info: dict | None, stacklevel: int
 def run_iterative_mapreduce(spec: IterativeSpec, inputs, init_state, mesh, secure=None,
                             round_offset: int = 0, chacha_impl: str | None = None,
                             coalesce: bool | None = None, warn_on_overflow: bool = True):
-    """Run `spec.n_rounds` rounds from global round `round_offset`.
+    """Run `spec.n_rounds` rounds from global round `round_offset`, eagerly.
 
     Returns (final_state, aux_per_round, dropped_per_round), each per-round
     tensor with a leading (n_rounds,) dim, plus (rounds_executed, halted)
     when `spec.halt_fn` is set; rounds after a halt are zero-filled.
     """
-    secure, state, inputs, layout = _prepare(spec, inputs, init_state, mesh, secure,
-                                             chacha_impl, coalesce)
-    info: dict = {}
-    state, auxes, drops, n_exec, halted = _run_chunk(
-        spec, mesh, inputs, state, spec.n_rounds, round_offset, secure, coalesce, info,
-        layout)
-    state = layout.gather(state, mesh)
-    pad = spec.n_rounds - n_exec
-    aux = tree_map(lambda *xs: torch.stack(list(xs) + [torch.zeros_like(xs[0])] * pad),
-                   *auxes)
-    dropped = torch.stack(drops + [torch.zeros_like(drops[0])] * pad)
+    runner = _EagerRunner(spec, mesh, _with_knobs(secure, chacha_impl, coalesce), spec.n_rounds,
+                          coalesce)
+    state, aux, dropped, n_exec, halted = runner(inputs, init_state, round_offset)
     if warn_on_overflow:
-        _warn_overflow(dropped[:n_exec].cpu().numpy(), round_offset, info)
+        _warn_overflow(dropped[:n_exec].cpu().numpy(), round_offset, runner.trace_info)
     if spec.halt_fn is None:
         return state, aux, dropped
     return state, aux, dropped, n_exec, halted
@@ -374,12 +655,21 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
                      max_rounds: int = 64, round_offset: int = 0, min_chunk: int = 1,
                      growth="auto", max_chunk: int | None = None,
                      chacha_impl: str | None = None, coalesce: bool | None = None,
-                     warn_on_overflow: bool = True):
+                     warn_on_overflow: bool = True, runners=None, job_tag=None):
     """Cooperative (generator) form of `run_until`.
 
     Yields {"chunk_rounds", "rounds_executed", "n_dispatches", "halted"}
     after every chunk and returns the `RunUntilResult` as StopIteration.value.
     `spec.n_rounds` is ignored: chunk sizes are chosen here.
+
+    `runners`: a runner cache reused across calls -- a plain dict (chunk size
+    -> runner) or any object with `get_or_build(n_rounds, build)` (the
+    service's keyed `RunnerCache` views). The caller owns its validity: it
+    must hold runners built from the SAME spec, mesh, secure and knobs. With
+    None, every chunk runs the eager loop: a graph replayed once would pay
+    its capture and save nothing. `job_tag` wraps each chunk in
+    `wire_accounting.tagged`, so interleaved jobs sharing a
+    `record_wire_bytes` sink stay separable.
     """
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
@@ -387,21 +677,36 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     if min_chunk < 1:
         raise ValueError(f"min_chunk must be >= 1, got {min_chunk}")
     max_chunk = min(max_chunk or max_rounds, max_rounds)
-    secure, state, inputs, layout = _prepare(spec, inputs, init_state, mesh, secure,
-                                             chacha_impl, coalesce)
+    secure = _with_knobs(secure, chacha_impl, coalesce)
+    get_or_build = getattr(runners, "get_or_build", None)
+    inputs, state = _on_device(inputs, mesh), _on_device(init_state, mesh)
     executed = dispatched = n_dispatches = 0
     halted = False
     auxes: list = []
     drops: list = []
     info: dict = {}
     chunk = min(max(1, min_chunk), max_chunk)
+    runner = None
     while executed < max_rounds and not halted:
         n = min(chunk, max_rounds - executed)
-        state, a, d, n_exec, halted = _run_chunk(
-            spec, mesh, inputs, state, n, round_offset + executed, secure, coalesce, info,
-            layout)
-        auxes += a
-        drops += d
+
+        def build(n=n, prev=runner):  # a job's runners share their static buffers
+            return make_iterative_runner(spec, mesh, secure, n, coalesce=coalesce,
+                                         share_with=prev)
+
+        if runners is None:
+            runner = _EagerRunner(spec, mesh, secure, n, coalesce)
+        elif get_or_build is not None:
+            runner = get_or_build(n, build)
+        else:
+            runner = runners.get(n)
+            if runner is None:
+                runner = runners[n] = build()
+        with wire_accounting.tagged(job_tag):
+            state, aux, dropped, n_exec, halted = runner(inputs, state, round_offset + executed)
+        info = runner.trace_info
+        auxes.append(tree_map(lambda a: a[:n_exec], aux))
+        drops.append(dropped[:n_exec])
         n_dispatches += 1
         dispatched += n
         executed += n_exec
@@ -409,10 +714,10 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
         yield {"chunk_rounds": n, "rounds_executed": executed,
                "n_dispatches": n_dispatches, "halted": halted}
 
-    aux = tree_map(lambda *xs: torch.stack(xs).cpu().numpy(), *auxes)
-    dropped = torch.stack(drops).cpu().numpy()
+    aux = tree_map(lambda *xs: torch.cat(xs).cpu().numpy(), *auxes)
+    dropped = torch.cat(drops).cpu().numpy()
     if warn_on_overflow:
         _warn_overflow(dropped, round_offset, info, stacklevel=4)
-    return RunUntilResult(state=layout.gather(state, mesh), aux=aux, dropped=dropped, rounds_executed=executed,
+    return RunUntilResult(state=state, aux=aux, dropped=dropped, rounds_executed=executed,
                           rounds_dispatched=dispatched, n_dispatches=n_dispatches,
                           halted=halted)

@@ -11,19 +11,21 @@ below diag/1000 of the data's bounding box; the rule is the job's
 `halt_fn`, read by `repro_torch.core.driver.run_until` after every round.
 
   * `make_kmeans_step` -- one round per call, kept as the oracle;
-  * `kmeans_fit` -- rounds to convergence through the driver.
+  * `kmeans_fit` -- rounds to convergence through the driver, eagerly, or
+    through the cached runners of a `make_kmeans_runner(...)` (CUDA graphs
+    on the card) that many fits share.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.core.driver import IterativeSpec, P, run_until
 from repro_torch.core.engine import identity_hash
-from repro_torch.core.shuffle import bucket_pack, keyed_all_to_all
+from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
 from repro_torch.kernels.kmeans.ops import kmeans_assign
 from repro_torch.kernels.kmeans.ref import kmeans_assign_ref
 from repro_torch.tree import tree_map
@@ -193,17 +195,69 @@ def inertia_of(points: torch.Tensor, centers: torch.Tensor, chunk: int = INERTIA
     return total
 
 
+@dataclass
+class KMeansRunnerCache:
+    """Prebuilt runner cache for `kmeans_fit(runner=...)`.
+
+    Holds the iterative spec (halt threshold baked in) and the per-chunk-size
+    runners that `run_until` fills lazily (`core/driver.py`: a CUDA graph of
+    one round on the card, the eager chunk on the CPU). `runners` is a plain
+    dict unless `make_kmeans_runner(cache=...)` put a keyed view of a
+    `repro_torch.serve.RunnerCache` there, shared with the job service.
+    """
+
+    spec: IterativeSpec
+    mesh: object
+    secure: SecureShuffleConfig | None
+    chacha_impl: str | None
+    max_chunk: int
+    threshold: float | None
+    min_chunk: int = 1
+    coalesce: bool | None = None
+    runners: object = field(default_factory=dict)
+
+
+def make_kmeans_runner(mesh, k: int, *, secure=None, impl: str = "auto",
+                       rounds_per_dispatch: int = 8, threshold: float | None = None,
+                       min_chunk: int = 1, chacha_impl: str | None = None,
+                       coalesce: bool | None = None, cache=None) -> KMeansRunnerCache:
+    """Prebuild the runner cache of `kmeans_fit` for (k, mesh, secure, impl, threshold).
+
+    `threshold` bakes the stopping rule into the halt (without one, the cache
+    cannot serve `kmeans_fit`, which raises). `rounds_per_dispatch` caps the
+    chunk growth and `min_chunk` sets the first chunk. `cache` (a
+    `repro_torch.serve.RunnerCache`) backs the runners with that keyed cache
+    instead of a private dict, so fits and the job service share captures.
+    A runner captures one graph per shape of points, so one cache serves
+    fits of any size; each size keeps its own copy of the points on the card.
+    """
+    spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
+    runner = KMeansRunnerCache(spec=spec, mesh=mesh, secure=secure, chacha_impl=chacha_impl,
+                               max_chunk=max(1, rounds_per_dispatch), threshold=threshold,
+                               min_chunk=max(1, min_chunk), coalesce=coalesce)
+    if cache is not None:
+        runner.runners = cache.view(
+            spec_id=("kmeans-fit", k, mesh.n_shards, impl,
+                     None if threshold is None else float(threshold)),
+            mesh=mesh, secure=secure, chacha_impl=chacha_impl, coalesce=coalesce)
+    return runner
+
+
 def kmeans_fit(points, k: int, mesh, *, secure=None, impl: str = "auto",
                threshold: float | None = None, max_iter: int = 200, init_centers=None,
                init: str = "first", weights=None, rounds_per_dispatch: int = 8,
                min_chunk: int = 1, chacha_impl: str | None = None,
-               coalesce: bool | None = None) -> KMeansResult:
+               coalesce: bool | None = None,
+               runner: KMeansRunnerCache | None = None) -> KMeansResult:
     """Iterate to convergence on `mesh`. threshold=None -> paper's diag/1000 rule.
 
     init: "first" (paper-style arbitrary start) or "farthest" (greedy
     farthest point). Chunks grow 1, 2, 4, ... up to `rounds_per_dispatch`;
     the halt is checked after every round, and the global round index keys
-    every secure round's keystream.
+    every secure round's keystream. Without `runner` the rounds run eagerly.
+    `runner` (a `make_kmeans_runner(...)`) runs them on its cached runners
+    and supplies mesh, secure, knobs and chunking; its baked threshold wins
+    over `threshold`, and a runner without one raises.
     """
     points = torch.as_tensor(points, dtype=torch.float32, device=mesh.device)
     n = points.shape[0]
@@ -213,15 +267,24 @@ def kmeans_fit(points, k: int, mesh, *, secure=None, impl: str = "auto",
     if init_centers is None:
         init_centers = points[:k] if init == "first" else _farthest_point_init(points, k)
     centers = torch.as_tensor(init_centers, dtype=torch.float32, device=mesh.device)
-    if threshold is None:
-        threshold = paper_threshold(points)
-
-    spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
-    res = run_until(spec, {"p": points, "w": weights}, centers, mesh, secure=secure,
-                    max_rounds=max_iter,
-                    max_chunk=max(1, min(rounds_per_dispatch, max_iter)),
-                    min_chunk=max(1, min_chunk), chacha_impl=chacha_impl,
-                    coalesce=coalesce)
+    if runner is not None:
+        if runner.threshold is None:
+            raise ValueError(
+                "kmeans_fit runner cache was built without a threshold: pass threshold= to "
+                "make_kmeans_runner so the halt is baked into its cached runners")
+        res = run_until(runner.spec, {"p": points, "w": weights}, centers, runner.mesh,
+                        secure=runner.secure, max_rounds=max_iter, max_chunk=runner.max_chunk,
+                        min_chunk=runner.min_chunk, chacha_impl=runner.chacha_impl,
+                        coalesce=runner.coalesce, runners=runner.runners)
+    else:
+        if threshold is None:
+            threshold = paper_threshold(points)
+        spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
+        res = run_until(spec, {"p": points, "w": weights}, centers, mesh, secure=secure,
+                        max_rounds=max_iter,
+                        max_chunk=max(1, min(rounds_per_dispatch, max_iter)),
+                        min_chunk=max(1, min_chunk), chacha_impl=chacha_impl,
+                        coalesce=coalesce)
     centers = res.state
     shifts = [float(x) for x in res.aux["shift"]]
     return KMeansResult(centers=centers, n_iter=res.rounds_executed, center_shift=shifts,

@@ -29,6 +29,17 @@ transpose between them, and a crypt on the card is one allocation and one
 launch: no host-to-device copy and no synchronisation. The per-leaf wire is
 kept as the oracle (`SecureShuffleConfig.coalesce=False`).
 
+The round index is a host int, XORed into nonce word 1 on the host and
+passed to the kernel by value, or a device tensor, which the kernel reads
+from device memory (`round_dev`): a round captured in a CUDA graph then keys
+every replay's keystream from the round id the replay is given.
+
+Wire accounting (`record_wire_bytes`, `wire_accounting`) is re-entrant: open
+record contexts form a stack of independent sinks removed by identity, so
+contexts held by interleaved generators may exit in any order;
+`wire_accounting.tagged(job_id)` fills each record's `job` field and
+`suppressed()` turns recording off.
+
 The wire is 32-bit words held as int32 (u32 bit patterns): ciphertext never
 travels as floats, which could quiet NaN payloads.
 """
@@ -36,6 +47,7 @@ travels as floats, which could quiet NaN payloads.
 from __future__ import annotations
 
 import functools
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -45,6 +57,7 @@ import torch
 from repro_torch.crypto import ctr as _ctr
 from repro_torch.crypto.chacha import CONSTANT_WORDS, MASK32, as_u32, u32_mul
 from repro_torch.crypto.ctr import WORD, words_for
+from repro_torch.device import device_constant
 from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_rows
 from repro_torch.kernels.chacha20.table import BlockTable, block_table
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -155,14 +168,25 @@ def _round_nonce(cfg: SecureShuffleConfig, round_id) -> np.ndarray:
     return base
 
 
+def _round_key(cfg: SecureShuffleConfig, round_id):
+    """(host nonce, device round id) of a round: a host int (or None) is
+    XORed into the nonce here; a device tensor goes to the kernel, which XORs
+    it into nonce word 1 itself."""
+    if isinstance(round_id, torch.Tensor):
+        return _round_nonce(cfg, None), round_id
+    return _round_nonce(cfg, round_id), None
+
+
 # --- per-leaf wire (the oracle) ------------------------------------------------
 
 
 def _crypt_rows(cfg: SecureShuffleConfig, words, nonce_ids, ctr_starts, round_id):
     """XOR an (n_rows, n_words) wire with per-row keystreams (one launch)."""
+    nonce, round_dev = _round_key(cfg, round_id)
     state0 = np.concatenate([CONSTANT_WORDS, np.asarray(cfg.key_words, np.uint32), [0],
-                             _round_nonce(cfg, round_id)]).astype(np.uint32)
-    return chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, impl=cfg.impl)
+                             nonce]).astype(np.uint32)
+    return chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, impl=cfg.impl,
+                             round_dev=round_dev)
 
 
 def _pack_wire(tree, lead: int = 1):
@@ -270,7 +294,8 @@ def _layout_table(layout: _WireLayout, device) -> BlockTable:
     packed_start = the leaf's word_start + 16·b, n_valid = min(16, n_words -
     16·b): the per-leaf counter space, block-aligned per leaf, placed on the
     packed words. It depends only on the leaves' row shapes and dtypes and on
-    R, so it is built once per (layout, device) and kept on the device.
+    R, so it is built once per (layout, device) and kept on the device; a
+    captured round takes it through `device_constant`, which pins it.
     """
     base, mul, start, valid = [], [], [], []
     ctr_off = 0
@@ -293,48 +318,122 @@ def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
     block's words straight onto the packed wire (`_layout_table` places
     them). With a warm layout and int32 ids already on the card (as
     `keyed_all_to_all` passes them) the call is one allocation and one
-    launch.
+    launch. `round_id` is a host int or a device tensor (`_round_key`).
     """
     if layout.total_blocks == 0:
         return wire
-    table = _layout_table(layout, wire.device)
-    return chacha20_xor_packed(wire, table, cfg.key_words, _round_nonce(cfg, round_id),
-                               cfg.counter0, nonce_ids, ctr_rows, impl=cfg.impl)
+    table = device_constant(_layout_table, layout, wire.device)
+    nonce, round_dev = _round_key(cfg, round_id)
+    return chacha20_xor_packed(wire, table, cfg.key_words, nonce, cfg.counter0, nonce_ids,
+                               ctr_rows, impl=cfg.impl, round_dev=round_dev)
 
 
 # --- wire accounting -------------------------------------------------------------
 
-_sinks: list[list] = []
 
+class _WireAccounting:
+    """Shuffle byte counter behind `record_wire_bytes`, re-entrant.
 
-def note_wire(*, secure: bool, nbytes: int, n_leaves: int, halted: bool = False,
-              coalesced: bool = False, pad_bytes: int = 0, per_leaf=None,
-              collectives: int = 0, keystream_launches: int = 0,
-              keystream_blocks: int = 0) -> None:
-    """Append one record per shuffle call to every open `record_wire_bytes`.
-
-    Fields are those of `repro.core.shuffle._WireAccounting.note`, per shard:
-    bytes (payload), wire_bytes (= bytes + pad_bytes), per_leaf payload
-    bytes, collectives (all_to_all exchanges), keystream_launches and
-    keystream_blocks (encrypt + decrypt); job is always None in this port.
+    Open record contexts form a stack of independent sinks (every shuffle
+    appends one record to each); a sink is removed by identity, so contexts
+    held open by interleaved generators may exit out of stack order.
+    `suppressed()` is a nesting counter; `tagged(job_id)` gives each record
+    the innermost job id, so a sink shared by interleaved jobs splits by
+    job. The port records every executed shuffle call: a round replayed from
+    a CUDA graph re-emits the record its capture made (`emit`).
     """
-    if not _sinks:
-        return
-    rec = {"secure": secure, "bytes": nbytes, "leaves": n_leaves,
-           "halted": halted, "coalesced": coalesced,
-           "wire_bytes": nbytes + pad_bytes, "pad_bytes": pad_bytes,
-           "per_leaf": list(per_leaf or []), "collectives": collectives,
-           "keystream_launches": keystream_launches,
-           "keystream_blocks": keystream_blocks, "job": None}
-    for sink in _sinks:
-        sink.append(dict(rec))
+
+    def __init__(self):
+        self._sinks: list[list] = []
+        self._tags: list = []
+        self._suppress = 0
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self._sinks) and self._suppress == 0
+
+    def note(self, *, secure: bool, nbytes: int, n_leaves: int, halted: bool = False,
+             coalesced: bool = False, pad_bytes: int = 0, per_leaf=None,
+             collectives: int = 0, keystream_launches: int = 0,
+             keystream_blocks: int = 0) -> None:
+        """Append one record per shuffle call to every open sink.
+
+        Fields are those of `repro.core.shuffle._WireAccounting.note`, per
+        shard: bytes (payload), wire_bytes (= bytes + pad_bytes), per_leaf
+        payload bytes, collectives (all_to_all exchanges), keystream_launches
+        and keystream_blocks (encrypt + decrypt), job (the innermost
+        `tagged` id, or None).
+        """
+        if not self.enabled:
+            return
+        self.emit([{"secure": secure, "bytes": nbytes, "leaves": n_leaves,
+                    "halted": halted, "coalesced": coalesced,
+                    "wire_bytes": nbytes + pad_bytes, "pad_bytes": pad_bytes,
+                    "per_leaf": list(per_leaf or []), "collectives": collectives,
+                    "keystream_launches": keystream_launches,
+                    "keystream_blocks": keystream_blocks}])
+
+    def emit(self, records) -> None:
+        """Append copies of `records` to every open sink, under the current tag."""
+        if not self.enabled:
+            return
+        job = self._tags[-1] if self._tags else None
+        for sink in self._sinks:
+            sink.extend(dict(rec, per_leaf=list(rec["per_leaf"]), job=job) for rec in records)
+
+    @contextmanager
+    def suppressed(self):
+        """Record nothing inside (nestable)."""
+        self._suppress += 1
+        try:
+            yield
+        finally:
+            self._suppress -= 1
+
+    @contextmanager
+    def tagged(self, job_id):
+        """Attribute records made inside to `job_id`; None changes nothing."""
+        if job_id is None:
+            yield
+            return
+        self._tags.append(job_id)
+        try:
+            yield
+        finally:
+            self._tags.remove(job_id)
+
+    @contextmanager
+    def isolated(self):
+        """Record only into a fresh sink inside, which it yields; the open
+        sinks, tags and suppression are set aside until it exits. A round
+        captured into a CUDA graph keeps its records this way, to `emit` at
+        each replay."""
+        saved = self._sinks, self._tags, self._suppress
+        self._sinks, self._tags, self._suppress = [[]], [], 0
+        try:
+            yield self._sinks[0]
+        finally:
+            self._sinks, self._tags, self._suppress = saved
+
+    def _open(self, sink: list) -> None:
+        self._sinks.append(sink)
+
+    def _close(self, sink: list) -> None:
+        for i, s in enumerate(self._sinks):
+            if s is sink:
+                del self._sinks[i]
+                return
+
+
+wire_accounting = _WireAccounting()
 
 
 class record_wire_bytes:
-    """Context manager: one record per `keyed_all_to_all` call inside the block.
+    """Context manager: one record per executed shuffle call inside the block.
 
-    The port runs eagerly, so every executed round's shuffle appends its own
-    record (the JAX package records once per traced program).
+    The port runs rounds eagerly or replays them from a CUDA graph, and
+    either way every executed round's shuffle appends its own record (the
+    JAX package records once per traced program).
     """
 
     def __init__(self):
@@ -342,14 +441,11 @@ class record_wire_bytes:
 
     def __enter__(self):
         self.records = []
-        _sinks.append(self.records)
+        wire_accounting._open(self.records)
         return self.records
 
     def __exit__(self, *exc):
-        for i, sink in enumerate(_sinks):
-            if sink is self.records:
-                del _sinks[i]
-                break
+        wire_accounting._close(self.records)
         return False
 
 
@@ -375,10 +471,11 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
     In secure mode leaves are packed to word wires, encrypted, exchanged,
     decrypted and unpacked. With the coalesced layout the whole pytree is one
     wire and a round costs 2 keystream launches (one per side, each over all
-    S·R rows) and one exchange. `round_index` (a host int) selects a
-    disjoint keystream per round; None is round 0. In plaintext mode
-    `coalesce` picks the wire (default packed); in secure mode the config's
-    own `coalesce` governs.
+    S·R rows) and one exchange. `round_index` selects a disjoint keystream
+    per round: a host int, or a device tensor that the kernel reads (an int32
+    tensor is taken as u32 bits, another integer masked to 32 bits); None is
+    round 0. In plaintext mode `coalesce` picks the wire (default packed); in
+    secure mode the config's own `coalesce` governs.
     """
     leaves = tree_flatten(tree)[0]
     s = mesh.n_shards
@@ -386,21 +483,22 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
     if secure is None:
         if resolve_coalesce(coalesce):
             wire, layout, treedef = _pack_wire_coalesced(tree, lead=2)
-            note_wire(secure=False, nbytes=layout.payload_words * r * 4,
+            wire_accounting.note(secure=False, nbytes=layout.payload_words * r * 4,
                       n_leaves=len(layout.leaves), coalesced=True,
                       per_leaf=[m[4] * r * 4 for m in layout.leaves], collectives=1)
             return _unpack_wire_coalesced(mesh.all_to_all(wire), layout, treedef, lead=2)
         raw = [l.numel() // s * l.dtype.itemsize for l in leaves]
-        note_wire(secure=False, nbytes=sum(raw), n_leaves=len(leaves), per_leaf=raw,
+        wire_accounting.note(secure=False, nbytes=sum(raw), n_leaves=len(leaves), per_leaf=raw,
                   collectives=len(leaves))
         return tree_map(mesh.all_to_all, tree)
 
-    send_ids, send_rows, recv_ids, recv_rows = _exchange_ids(s, r, leaves[0].device)
+    send_ids, send_rows, recv_ids, recv_rows = device_constant(_exchange_ids, s, r,
+                                                               leaves[0].device)
 
     if resolve_coalesce(secure.coalesce):
         wire, layout, treedef = _pack_wire_coalesced(tree, lead=2)
         per_leaf = [m[4] * r * 4 for m in layout.leaves]
-        note_wire(secure=True, nbytes=sum(per_leaf), n_leaves=len(layout.leaves),
+        wire_accounting.note(secure=True, nbytes=sum(per_leaf), n_leaves=len(layout.leaves),
                   coalesced=True, pad_bytes=wire.shape[-1] * r * 4 - sum(per_leaf),
                   per_leaf=per_leaf, collectives=1, keystream_launches=2,
                   keystream_blocks=2 * r * layout.total_blocks)
@@ -412,7 +510,7 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
         return _unpack_wire_coalesced(flat.reshape(s, r, w), layout, treedef, lead=2)
 
     wires, meta, treedef = _pack_wire(tree, lead=2)
-    note_wire(secure=True, nbytes=sum(wi.numel() // s * 4 for wi in wires),
+    wire_accounting.note(secure=True, nbytes=sum(wi.numel() // s * 4 for wi in wires),
               n_leaves=len(wires), per_leaf=[wi.numel() // s * 4 for wi in wires],
               collectives=len(wires), keystream_launches=2 * len(wires),
               keystream_blocks=2 * sum(r * -(-wi.shape[-1] // 16) for wi in wires))

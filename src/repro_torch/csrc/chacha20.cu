@@ -16,7 +16,10 @@
 // the tail words a leaf does not use are never produced. The row-aligned
 // entry points pass the table {j, 1, 16j, min(16, row_words - 16j)}. Key,
 // nonce and counter0 come by value in the launch's parameters: the call
-// copies nothing to the card.
+// copies nothing to the card. An optional device pointer to one u32 round id
+// is XORed into nonce word 1 on the card (null: nothing is XORed), so a
+// launch captured in a CUDA graph keys each replay's round from device
+// memory instead of freezing the round it was captured with.
 //
 // What bounds it on an H100: per 64-byte block the kernel reads 64 bytes,
 // writes 64 bytes and does about 1,000 32-bit integer operations (80
@@ -89,7 +92,8 @@ __global__ void __launch_bounds__(256)
 chacha20_xor_packed_lanes4(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                            const int4* __restrict__ table,
                            const uint32_t* __restrict__ nonce_ids,
-                           const uint32_t* __restrict__ ctr_rows, ChachaParams p,
+                           const uint32_t* __restrict__ ctr_rows,
+                           const uint32_t* __restrict__ round_id, ChachaParams p,
                            unsigned n_rows, unsigned n_blocks, size_t row_words) {
   const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
   const int q = threadIdx.x & 3;
@@ -117,8 +121,8 @@ chacha20_xor_packed_lanes4(const uint32_t* __restrict__ x, uint32_t* __restrict_
   const uint32_t a0 = pick4(q, kC0, kC1, kC2, kC3);
   const uint32_t b0 = pick4(q, p.key[0], p.key[1], p.key[2], p.key[3]);
   const uint32_t c0 = pick4(q, p.key[4], p.key[5], p.key[6], p.key[7]);
-  const uint32_t d0 = pick4(q, ctr, p.nonce[0] ^ __ldg(nonce_ids + i), p.nonce[1],
-                            p.nonce[2]);
+  const uint32_t nonce1 = p.nonce[1] ^ (round_id ? __ldg(round_id) : 0u);
+  const uint32_t d0 = pick4(q, ctr, p.nonce[0] ^ __ldg(nonce_ids + i), nonce1, p.nonce[2]);
   uint32_t a = a0, b = b0, c = c0, d = d0;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -148,7 +152,8 @@ __global__ void __launch_bounds__(256)
 chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                            const int4* __restrict__ table,
                            const uint32_t* __restrict__ nonce_ids,
-                           const uint32_t* __restrict__ ctr_rows, ChachaParams p,
+                           const uint32_t* __restrict__ ctr_rows,
+                           const uint32_t* __restrict__ round_id, ChachaParams p,
                            unsigned n_rows, unsigned n_blocks, size_t row_words) {
   const unsigned item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= n_rows * n_blocks) return;
@@ -174,7 +179,8 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
                     p.key[0], p.key[1], p.key[2], p.key[3],
                     p.key[4], p.key[5], p.key[6], p.key[7],
                     p.counter0 + (uint32_t)e.x + (uint32_t)e.y * __ldg(ctr_rows + i),
-                    p.nonce[0] ^ __ldg(nonce_ids + i), p.nonce[1], p.nonce[2]};
+                    p.nonce[0] ^ __ldg(nonce_ids + i),
+                    p.nonce[1] ^ (round_id ? __ldg(round_id) : 0u), p.nonce[2]};
   uint32_t v[16];
 #pragma unroll
   for (int w = 0; w < 16; ++w) v[w] = s[w];
@@ -207,7 +213,8 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
 
 // x, y: distinct (n_rows, row_words) u32 buffers; table: (n_blocks, 4) i32
 // {ctr_base, ctr_rowmul, packed_start, n_valid}, whose blocks cover every
-// word of a row exactly once; nonce_ids, ctr_rows: (n_rows,) u32 on the card.
+// word of a row exactly once; nonce_ids, ctr_rows: (n_rows,) u32 on the card;
+// round_id: null, or one u32 on the card that both cores XOR into nonce word 1.
 // params: 12 host words {key[8], nonce[3], counter0}, passed to the kernel by
 // value. lanes: 4 or 1. aligned: every block has n_valid 16 and a packed_start
 // that is a multiple of 4 (the one-thread core then moves 16-byte vectors).
@@ -215,8 +222,8 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int chacha20_xor_packed(const void* x, void* y, const void* table,
                                    const void* nonce_ids, const void* ctr_rows,
-                                   const uint32_t* params, long long n_rows,
-                                   long long n_blocks, long long row_words, int lanes,
+                                   const void* round_id, const uint32_t* params,
+                                   long long n_rows, long long n_blocks, long long row_words, int lanes,
                                    int aligned, void* stream) {
   const long long total = n_rows * n_blocks;
   if (total == 0) return 0;
@@ -230,8 +237,8 @@ extern "C" int chacha20_xor_packed(const void* x, void* y, const void* table,
     const unsigned grid = (unsigned)((total * 4 + threads - 1) / threads);
     chacha20_xor_packed_lanes4<<<grid, threads, 0, s>>>(
         (const uint32_t*)x, (uint32_t*)y, (const int4*)table, (const uint32_t*)nonce_ids,
-        (const uint32_t*)ctr_rows, p, (unsigned)n_rows, (unsigned)n_blocks,
-        (size_t)row_words);
+        (const uint32_t*)ctr_rows, (const uint32_t*)round_id, p, (unsigned)n_rows,
+        (unsigned)n_blocks, (size_t)row_words);
   } else {
     const bool vec = aligned && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
                      row_words % 4 == 0;
@@ -239,8 +246,8 @@ extern "C" int chacha20_xor_packed(const void* x, void* y, const void* table,
     auto kernel = vec ? chacha20_xor_packed_lanes1<true> : chacha20_xor_packed_lanes1<false>;
     kernel<<<grid, threads, 0, s>>>(
         (const uint32_t*)x, (uint32_t*)y, (const int4*)table, (const uint32_t*)nonce_ids,
-        (const uint32_t*)ctr_rows, p, (unsigned)n_rows, (unsigned)n_blocks,
-        (size_t)row_words);
+        (const uint32_t*)ctr_rows, (const uint32_t*)round_id, p, (unsigned)n_rows,
+        (unsigned)n_blocks, (size_t)row_words);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,14 @@
-"""Device selection: the card by default, the CPU only when asked for."""
+"""Device selection (the card by default, the CPU only when asked for), and
+the device constants that a captured CUDA graph reads."""
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
+
+_pins = threading.local()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,3 +25,35 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch versions of the kernels on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextmanager
+def pinned_constants(store: dict):
+    """Inside, `device_constant` looks its values up in `store` first and
+    adds what it builds there.
+
+    A CUDA graph captured inside keeps the addresses of the device constants
+    it read (block tables, exchange ids); the owner of `store` keeps those
+    tensors alive for as long as it replays the graph, whatever the LRU
+    caches behind them evict meanwhile, and a later capture into the same
+    store copies nothing from the host. Nests per thread; the innermost wins.
+    """
+    stack = _pins.__dict__.setdefault("stack", [])
+    stack.append(store)
+    try:
+        yield store
+    finally:
+        stack.pop()
+
+
+def device_constant(cached_fn, *args):
+    """`cached_fn(*args)`, a device tensor (or a tuple of them) from an LRU
+    cache, taken through the innermost `pinned_constants` store if any."""
+    stack = getattr(_pins, "stack", None)
+    if not stack:
+        return cached_fn(*args)
+    store = stack[-1]
+    key = (cached_fn, args)
+    if key not in store:
+        store[key] = cached_fn(*args)
+    return store[key]

@@ -7,7 +7,10 @@ small wire and one thread per block on a large one (`lanes_for`), and XORs
 the keystream straight onto a packed (n_rows, row_words) word wire, placed
 by a per-block table (`table.BlockTable`; `ref.chacha20_xor_packed_ref`
 states the contract). Key, nonce and counter0 travel by value in the launch, so a call
-is one launch: nothing is copied to the card and nothing synchronises.
+is one launch: nothing is copied to the card and nothing synchronises. An
+optional `round_dev`, one u32 on the card, is XORed into nonce word 1 by the
+kernel: a launch captured in a CUDA graph then keys every replay's round from
+device memory.
 `launches` counts the launches this process has made.
 """
 
@@ -29,7 +32,7 @@ def _lib():
     global _fn
     if _fn is None:
         fn = _build.load("chacha20").chacha20_xor_packed
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -67,13 +70,15 @@ def lanes_for(n_items: int, device) -> int:
 
 
 def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_ids,
-                             ctr_rows, *, lanes: int | None = None):
+                             ctr_rows, *, round_dev=None, lanes: int | None = None):
     """y = x ^ keystream over an (n_rows, row_words) int32 CUDA wire.
 
     Same contract as `ref.chacha20_xor_packed_ref`. `table` is a
     `table.BlockTable` on the card; `nonce_ids` and `ctr_rows` (n_rows,) are
     int32 CUDA tensors holding u32 bits; key_words (8,), nonce_words (3,)
-    and counter0 are host values. `lanes` (4 or 1) overrides `lanes_for`.
+    and counter0 are host values. `round_dev`, None or a (1,) int32 CUDA
+    tensor of u32 bits, is XORed into nonce word 1 on the card. `lanes` (4 or
+    1) overrides `lanes_for`.
     One launch on the current stream; the table must cover every word of a
     row exactly once (the output is not initialised elsewhere).
     """
@@ -86,7 +91,11 @@ def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_i
     _check(table.words, "table", (n_blocks, 4))
     _check(nonce_ids, "nonce_ids", (n_rows,))
     _check(ctr_rows, "ctr_rows", (n_rows,))
-    for t in (table.words, nonce_ids, ctr_rows):
+    operands = [table.words, nonce_ids, ctr_rows]
+    if round_dev is not None:
+        _check(round_dev, "round_dev", (1,))
+        operands.append(round_dev)
+    for t in operands:
         if t.device != x.device:
             raise ValueError("all operands must be on the same device")
     n_items = n_rows * n_blocks
@@ -101,7 +110,8 @@ def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_i
         return y
     params = params_words(key_words, nonce_words, counter0)
     err = _lib()(x.data_ptr(), y.data_ptr(), table.words.data_ptr(), nonce_ids.data_ptr(),
-                 ctr_rows.data_ptr(), params.ctypes.data, n_rows, n_blocks, row_words,
+                 ctr_rows.data_ptr(), None if round_dev is None else round_dev.data_ptr(),
+                 params.ctypes.data, n_rows, n_blocks, row_words,
                  lanes, int(table.aligned), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "chacha20_xor_packed launch")
     launches += 1

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.crypto import ctr as _ctr
 from repro_torch.crypto.chacha import CONSTANT_WORDS, as_u32, to_word_bits
-from repro_torch.device import resolve_device
+from repro_torch.device import device_constant, resolve_device
 from repro_torch.kernels import uses_kernel
 from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda
 from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
@@ -49,20 +49,25 @@ def _zero_id(device) -> torch.Tensor:
 
 
 def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, ctr_rows,
-                        *, impl: str = "auto"):
+                        *, impl: str = "auto", round_dev=None):
     """XOR an (n_rows, row_words) int32 wire with the keystream its table places.
 
     Block j of row i uses nonce word 0 XOR nonce_ids[i] and counter counter0
     + ctr_base[j] + ctr_rowmul[j] · ctr_rows[i] (mod 2**32) and XORs its first
-    n_valid[j] words onto words packed_start[j]... of row i.
+    n_valid[j] words onto words packed_start[j]... of row i. `round_dev`
+    (None, or one round id as a tensor on x's device; an int32 one is taken
+    as u32 bits, any other integer masked to 32 bits) is XORed into nonce
+    word 1 on the device.
     """
     dev = x.device
     nonce_ids, ctr_rows = ids_on(nonce_ids, dev), ids_on(ctr_rows, dev)
+    if round_dev is not None:
+        round_dev = ids_on(round_dev.reshape(1), dev)
     if uses_kernel(impl, x):
         return chacha20_xor_packed_cuda(x.contiguous(), table, key_words, nonce_words,
-                                        counter0, nonce_ids, ctr_rows)
+                                        counter0, nonce_ids, ctr_rows, round_dev=round_dev)
     return chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0,
-                                   nonce_ids, ctr_rows)
+                                   nonce_ids, ctr_rows, round_dev=round_dev)
 
 
 def make_state0(key_words, nonce_words, counter0, device=None) -> torch.Tensor:
@@ -95,23 +100,26 @@ def _xor_flat(words, key, nonce, counter0, impl):
     if n == 0:
         return words
     dev = words.device
-    zero = _zero_id(dev)
-    return chacha20_xor_packed(words.reshape(1, n), row_table(n, dev), key, nonce, counter0,
+    zero = device_constant(_zero_id, dev)
+    return chacha20_xor_packed(words.reshape(1, n), device_constant(row_table, n, dev), key, nonce, counter0,
                                zero, zero, impl=impl).reshape(n)
 
 
-def chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, *, impl: str = "auto"):
+def chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, *, impl: str = "auto",
+                      round_dev=None):
     """XOR an (R, n_words) wire with per-row keystreams.
 
     Row i uses nonce word 0 XOR nonce_ids[i] and block counters starting at
     ctr_starts[i] (absolute; state0[12] is ignored) -- the per-leaf wire.
+    `round_dev` is XORed into nonce word 1 on the device, as in
+    `chacha20_xor_packed`.
     """
     r, n = words.shape
     if n == 0 or r == 0:
         return words
     key, nonce, _ = _split_state0(state0)
-    return chacha20_xor_packed(words, row_table(n, words.device), key, nonce, 0, nonce_ids,
-                               ctr_starts, impl=impl)
+    return chacha20_xor_packed(words, device_constant(row_table, n, words.device), key, nonce,
+                               0, nonce_ids, ctr_starts, impl=impl, round_dev=round_dev)
 
 
 def chacha20_xor_rows_coalesced(words, state0, nonce_ids, ctr_rows, ctr_base,

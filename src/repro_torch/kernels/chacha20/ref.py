@@ -44,23 +44,28 @@ def chacha20_xor_rows_ref(x, state0, nonce_ids, ctr_rows, ctr_base, ctr_rowmul):
 
 
 def chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0, nonce_ids,
-                            ctr_rows):
+                            ctr_rows, round_dev=None):
     """XOR an (n_rows, row_words) packed wire with its keystream.
 
     `table` is a `table.BlockTable` of (n_blocks, 4) u32 {ctr_base,
     ctr_rowmul, packed_start, n_valid}: block j of row i draws keystream from nonce word 0 XOR
     nonce_ids[i] and counter counter0 + ctr_base[j] + ctr_rowmul[j] *
     ctr_rows[i] (mod 2**32), and its first n_valid[j] words land on the
-    packed words packed_start[j] ... Computed as the aligned keystream of
+    packed words packed_start[j] ... `round_dev`, None or one u32 round id
+    held in a tensor (int32 bits), is XORed into nonce word 1: the round the
+    kernel reads from device memory. Computed as the aligned keystream of
     `chacha20_xor_rows_ref` (XOR with zeros), sliced onto the packed words and
     XORed: the composition the fused kernel replaces.
     """
     dev = x.device
     tab = as_u32(table.words, dev)
     n_rows, row_words = x.shape
-    state0 = np.concatenate([np.asarray(CONSTANT_WORDS, np.uint64),
-                             np.asarray(key_words, np.uint64).reshape(8), [0],
-                             np.asarray(nonce_words, np.uint64).reshape(3)])
+    state0 = as_u32(np.concatenate([np.asarray(CONSTANT_WORDS, np.uint64),
+                                    np.asarray(key_words, np.uint64).reshape(8), [0],
+                                    np.asarray(nonce_words, np.uint64).reshape(3)]), dev)
+    if round_dev is not None:
+        state0 = torch.cat([state0[:14], state0[14:15] ^ as_u32(round_dev, dev).reshape(1),
+                            state0[15:]])
     zeros = torch.zeros((n_rows, tab.shape[0], 16), dtype=torch.int32, device=dev)
     ks = chacha20_xor_rows_ref(zeros, state0, nonce_ids, ctr_rows,
                                (tab[:, 0] + (int(counter0) & MASK32)) & MASK32, tab[:, 1])

@@ -13,6 +13,8 @@ any use of a sharded leaf in `halt_fn` raises a ValueError naming it), not
 to the reference's own test of it, which fails on this tree.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -359,3 +361,109 @@ def test_halt_fn_on_replicated_leaves_still_works_alongside_sharded():
                          max_rounds=6)
     assert res.halted and res.rounds_executed == want.rounds_executed == 2
     np.testing.assert_array_equal(res.state["big"].numpy(), np.asarray(want.state["big"]))
+
+
+# --- runners: the cache contract of run_until -----------------------------------------
+
+
+def _runner_job(mesh):
+    """A resident-leaf job that halts at its fourth round (f32, sharded)."""
+    r = mesh.n_shards
+    spec = _resident_spec(mesh, torch.float32, True, 4.0 * r * r)
+    init = {"big": torch.zeros((r, C)), "tot": torch.zeros(())}
+    return spec, {"x": np.zeros((r,), np.float32)}, init
+
+
+def _assert_results_equal(a, b):
+    for k in a.state:
+        assert torch.equal(a.state[k], b.state[k]), k
+    for k in a.aux:
+        np.testing.assert_array_equal(a.aux[k], b.aux[k])
+    np.testing.assert_array_equal(a.dropped, b.dropped)
+    assert (a.rounds_executed, a.rounds_dispatched, a.n_dispatches, a.halted) == (
+        b.rounds_executed, b.rounds_dispatched, b.n_dispatches, b.halted)
+
+
+def test_runners_dict_is_filled_once_and_reused():
+    """`runners=` a dict: one runner per chunk size, built on first use and
+    reused by a later job; results equal the uncached run's."""
+    mesh = VirtualMesh(4, "cpu")
+    spec, inputs, init = _runner_job(mesh)
+    plain = tdrv.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=8)
+    runners = {}
+    first = tdrv.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=8,
+                           runners=runners)
+    built = dict(runners)
+    assert sorted(built) == [1, 2, 4]  # chunks of 1, 2, 4; the halt ends the third
+    assert all(isinstance(x, tdrv._EagerRunner) and x.captures == 0 for x in built.values())
+    second = tdrv.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=8,
+                            runners=runners, round_offset=0)
+    assert runners == built
+    _assert_results_equal(first, plain)
+    _assert_results_equal(second, plain)
+
+
+def test_runners_get_or_build_and_job_tag():
+    """Any object with get_or_build(n_rounds, build) serves as the cache;
+    job_tag tags the job's wire records."""
+    from repro_torch.core.shuffle import record_wire_bytes
+
+    class Cache:
+        def __init__(self):
+            self.calls, self.held = [], {}
+
+        def get_or_build(self, n, build):
+            self.calls.append(n)
+            if n not in self.held:
+                self.held[n] = build()
+            return self.held[n]
+
+    mesh = VirtualMesh(2, "cpu")
+    spec, inputs, init = _runner_job(mesh)
+    cache = Cache()
+    with record_wire_bytes() as recs:
+        res = tdrv.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=8,
+                             runners=cache, job_tag="job-7", round_offset=5)
+    assert cache.calls == [1, 2, 4]
+    assert len(recs) == res.rounds_executed == 4 and {r["job"] for r in recs} == {"job-7"}
+    assert res.halted
+
+
+def test_make_iterative_runner_on_the_cpu_is_the_eager_chunk():
+    """The runner's contract: (state, aux, dropped, rounds_executed, halted),
+    per-round rows zero past the executed ones, trace_info filled, and the
+    results of run_iterative_mapreduce."""
+    mesh = VirtualMesh(4, "cpu")
+    spec, inputs, init = _runner_job(mesh)
+    runner = tdrv.make_iterative_runner(spec, mesh, _cfg(), 6)
+    assert isinstance(runner, tdrv._EagerRunner) and runner.n_rounds == 6
+    state, aux, dropped, n_exec, halted = runner(inputs, init, 11)
+    want = tdrv.run_iterative_mapreduce(dataclasses.replace(spec, n_rounds=6), inputs, init,
+                                        mesh, secure=_cfg(), round_offset=11)
+    assert (n_exec, halted) == (want[3], want[4]) == (4, True)
+    for k in state:
+        assert torch.equal(state[k], want[0][k])
+    for k in aux:
+        assert torch.equal(aux[k], want[1][k]) and aux[k].shape[0] == 6
+        assert not aux[k][n_exec:].any()
+    assert torch.equal(dropped, want[2])
+    assert runner.trace_info == {"capacity": 4, "capacity_auto": False}  # spec.capacity = R
+    with pytest.raises(ValueError, match="n_rounds"):
+        tdrv.make_iterative_runner(spec, mesh, None, 0)
+
+
+def test_halt_guard_raises_through_a_runner_cache():
+    mesh = VirtualMesh(2, "cpu")
+    base = ts.make_sample_sort_spec(mesh, 8, halt_total=16)
+    spec = tdrv.IterativeSpec(map_fn=base.map_fn, reduce_fn=base.reduce_fn,
+                              hash_fn=base.hash_fn, capacity=base.capacity,
+                              halt_fn=lambda state, aux, r: state["sorted"].sum() > 0,
+                              state_specs=base.state_specs)
+    v = np.random.default_rng(0).random(16).astype(np.float32)
+    init = {"edges": torch.from_numpy(ts.initial_edges(float(v.min()), float(v.max()), 2)),
+            "sorted": torch.full((2, 16), torch.inf), "counts": torch.zeros(2)}
+    runners = {}
+    for _ in range(2):  # a runner whose first round raised raises again, as it did
+        with pytest.raises(ValueError, match=r"SHARDED carried-state leaf state\['sorted'\]"):
+            tdrv.run_until(spec, {"v": v}, init, mesh, secure=_cfg(), max_rounds=3,
+                           runners=runners)

@@ -375,7 +375,8 @@ def test_round_syncs_only_at_the_halt_read(cuda, workload):
         inputs = {"v": v}
         init = {"edges": torch.from_numpy(initial_edges(float(v.min()), float(v.max()), s)),
                 "sorted": torch.full((s, s * 64), torch.inf), "counts": torch.zeros(s)}
-    sec, state, inp, layout = driver._prepare(spec, inputs, init, mesh, _cfg(), None, None)
+    sec = _cfg()
+    inp, state, layout = driver._place(spec, mesh, inputs, init)
     driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout)  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -385,3 +386,331 @@ def test_round_syncs_only_at_the_halt_read(cuda, workload):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(flag) in (True, False)
+
+
+# --- the round id from device memory, and the graph runner -----------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 1])
+@pytest.mark.parametrize("round_id", [0, 1, 2**31, 2**32 - 1])
+@pytest.mark.parametrize("rows,blocks", [(64, 132), (5, 1000)])
+def test_chacha20_round_dev_matches_by_value_and_plain(cuda, rows, blocks, round_id, lanes):
+    """The round id read from device memory keys the keystream of the round
+    XORed into nonce word 1 on the host, bit for bit, on both cores."""
+    from repro_torch.kernels.chacha20 import kernel
+
+    rng = np.random.default_rng(rows + blocks + lanes)
+    x = w(rng.integers(0, 2**32, (rows, 16 * blocks), dtype=np.uint32)).to(cuda)
+    table = _rand_table(rng, blocks, cuda)
+    nid, crow = (w(rng.integers(0, 2**32, rows, dtype=np.uint32)).to(cuda) for _ in range(2))
+    key = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    nonce = rng.integers(0, 2**32, 3, dtype=np.uint32)
+    xored = nonce.copy()
+    xored[1] ^= np.uint32(round_id)
+    rd = w([round_id]).to(cuda)
+    got = kernel.chacha20_xor_packed_cuda(x, table, key, nonce, 9, nid, crow, round_dev=rd,
+                                          lanes=lanes)
+    by_value = kernel.chacha20_xor_packed_cuda(x, table, key, xored, 9, nid, crow, lanes=lanes)
+    assert torch.equal(got, by_value)
+    assert torch.equal(got, chacha20_xor_packed_ref(x, table, key, nonce, 9, nid, crow,
+                                                    round_dev=rd))
+
+
+@pytest.mark.gpu
+def test_graph_replays_at_two_rounds_give_those_rounds_ciphertext(cuda):
+    """A crypt captured once, replayed with two round ids written by fill_,
+    gives each round's own ciphertext."""
+    from repro_torch.core import shuffle
+
+    s = 8
+    wire, layout, _ = shuffle._pack_wire_coalesced(
+        _packed_tree(np.random.default_rng(2), s, s, 9, cuda), lead=2)
+    flat = wire.reshape(s * s, -1)
+    ids = shuffle._exchange_ids(s, s, cuda)
+    r = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0], ids[1], r)  # warm the caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0], ids[1], r)
+    got = {}
+    for rnd in (5, 2**32 - 2):
+        r.fill_(np.uint32(rnd).view(np.int32).item())
+        graph.replay()
+        got[rnd] = out.clone()
+        assert torch.equal(got[rnd], shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0],
+                                                                   ids[1], rnd))
+    assert not torch.equal(got[5], got[2**32 - 2])
+
+
+def _runner_case(workload, mesh):
+    """(spec, inputs, init) of a secure job that halts inside an 8-round chunk
+    (grep: 'grep_all' runs its whole stream without a halt)."""
+    from repro_torch.core.grep import make_grep_spec
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec
+    from repro_torch.core.sort import initial_edges, make_sample_sort_spec
+
+    s = mesh.n_shards
+    dev = mesh.device
+    if workload == "kmeans":
+        pts, _ = generate_points(s * 2048, 8, d=16, seed=5)
+        spec = make_kmeans_iterative_spec(8, mesh, runtime_threshold=True)
+        init = {"c": torch.from_numpy(pts[:8]).to(dev),
+                "thr": torch.tensor(2e-3, device=dev)}
+        return spec, {"p": pts, "w": np.ones(len(pts), np.float32)}, init
+    if workload.startswith("sort"):
+        v = _sort_values(s * 4096)
+        v[:s * 64] = np.inf  # serving padding
+        finite = v[np.isfinite(v)]
+        spec = make_sample_sort_spec(mesh, 4096, dynamic_total=True,
+                                     shard_state=workload == "sort_sharded")
+        init = {"edges": torch.from_numpy(initial_edges(float(finite.min()),
+                                                        float(finite.max()), s)).to(dev),
+                "sorted": torch.full((s, s * 4096), torch.inf, device=dev),
+                "counts": torch.zeros(s, device=dev),
+                "total": torch.tensor(float(finite.size), device=dev)}
+        return spec, {"v": v}, init
+    rng = np.random.default_rng(9)
+    t = (np.minimum(rng.zipf(1.2, s * 512 * 8), 300) - 2).astype(np.int32)
+    limit = None if workload == "grep_all" else int(np.isin(t, [0, 4, 17]).sum()) // 3
+    spec = make_grep_spec([0, 4, 17], 512, mesh, max_matches=limit)
+    init = {"hits": torch.zeros(3, device=dev),
+            "cursor": torch.zeros((), dtype=torch.int64, device=dev)}
+    return spec, {"t": t}, init
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["kmeans", "sort_sharded", "sort_replicated", "grep",
+                                      "grep_all"])
+def test_graph_runner_equals_eager_chunk(cuda, workload):
+    """The CUDA-graph runner gives the eager chunk's state, aux, drops, rounds
+    and halt bit for bit, at two round offsets; in a chunk that halts, the
+    card ran 2 ChaCha launches (and 1 k-means launch) per executed round and
+    none after the halt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case(workload, mesh)
+    graph = driver.make_iterative_runner(spec, mesh, _cfg(), 8)
+    eager = driver._EagerRunner(spec, mesh, _cfg(), 8)
+    assert isinstance(graph, driver._GraphRunner)
+    for offset in (3, 2**32 - 2):
+        got, want = graph(inputs, init, offset), eager(inputs, init, offset)
+        assert got[3:] == want[3:]
+        for a, b in zip(driver.tree_flatten(got[:3])[0], driver.tree_flatten(want[:3])[0]):
+            assert torch.equal(a, b)
+    assert graph.captures == 1 and graph.pool_bytes > 0
+    n_exec, halted = got[3], got[4]
+    assert (halted, n_exec < 8) == ((workload != "grep_all"),) * 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a first kernel that the counts leave out: a session's tracer has
+        # been seen to miss what the card runs right after it starts
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        graph(inputs, init, 100)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("chacha20" in n for n in names) == 2 * n_exec
+    assert sum("kmeans_assign_kernel" in n for n in names) == (
+        n_exec if workload == "kmeans" else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["kmeans", "grep_all"])
+def test_warm_graph_chunk_syncs_once_per_executed_round(cuda, workload):
+    """The one-round graph design: the host reads the halt flag after each
+    replay (one synchronising call per executed round) and nothing else
+    synchronises; a chunk without a halt makes none."""
+    import warnings
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case(workload, mesh)
+    inputs = {k: torch.as_tensor(v, device=cuda) for k, v in inputs.items()}
+    runner = driver.make_iterative_runner(spec, mesh, _cfg(), 8)
+    runner(inputs, init, 0)  # capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            out = runner(inputs, init, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(m.message) for m in got)
+    assert syncs == (out[3] if spec.halt_fn is not None else 0)
+
+
+def _service_mix(s):
+    rng = np.random.default_rng(3)
+    pts, _ = generate_points(s * 700, 4, d=8, seed=3)
+    vals = rng.lognormal(0.0, 1.0, s * 900).astype(np.float32)
+    toks = (np.minimum(rng.zipf(1.2, s * 1000), 300) - 2).astype(np.int32)
+    return pts, vals, toks, np.array([0, 4, 17], np.int32)
+
+
+@pytest.mark.gpu
+def test_service_on_the_card_warm_resubmit_and_interleaved_equal_serial(cuda):
+    """On the card: a warm resubmit captures nothing and misses nothing; a
+    secure k-means, sort and grep mix served interleaved equals the same
+    submissions served one at a time, bit for bit, the rerun all warm."""
+    from repro_torch import VirtualMesh
+    from repro_torch.serve import RunnerCache, SecureJobService
+
+    s = 8
+    pts, vals, toks, pats = _service_mix(s)
+    cache = RunnerCache()
+
+    def run(max_concurrent):
+        with SecureJobService(VirtualMesh(s, cuda), secure=_cfg(), cache=cache,
+                              max_concurrent=max_concurrent) as svc:
+            hs = (svc.submit_kmeans(pts, 4, max_rounds=12),
+                  svc.submit_sort(vals, max_rounds=5),
+                  svc.submit_grep(toks, pats, n_rounds=4, max_matches=40))
+            return hs, [h.result(timeout=600) for h in hs]
+
+    cold, first = run(3)
+    assert cache.captures() == len(cache) > 0
+    captures = cache.captures()
+    warm, again = run(1)
+    assert all(h.warm for h in warm) and cache.captures() == captures
+    for a, b in zip(first, again):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+    np.testing.assert_array_equal(first[1]["sorted"], np.sort(vals))
+    assert first[0]["halted"] and first[2]["halted"]
+
+
+@pytest.mark.gpu
+def test_a_jobs_graph_runners_share_their_statics_and_equal_eager(cuda):
+    """run_until through a runner dict: the chunk sizes' runners (1, 2, 4)
+    share one set of static buffers and one memory pool, and the job equals
+    the eager run_until bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case("sort_sharded", mesh)
+    runners = {}
+    got = driver.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=7,
+                           runners=runners)
+    want = driver.run_until(spec, inputs, init, mesh, secure=_cfg(), max_rounds=7)
+    assert sorted(runners) == [1, 2] and got.rounds_executed == want.rounds_executed == 3
+    assert runners[1]._statics is runners[2]._statics
+    for k in got.state:
+        assert torch.equal(got.state[k], want.state[k]), k
+    np.testing.assert_array_equal(got.aux["counts"], want.aux["counts"])
+    np.testing.assert_array_equal(got.dropped, want.dropped)
+
+
+@pytest.mark.gpu
+def test_graph_runner_halt_guard_raises_before_capture(cuda):
+    """A halt_fn touching a sharded leaf raises the guard's ValueError in the
+    runner's warm-up round, before any capture."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+
+    mesh = VirtualMesh(8, cuda)
+    base, inputs, init = _runner_case("sort_sharded", mesh)
+    spec = driver.IterativeSpec(map_fn=base.map_fn, reduce_fn=base.reduce_fn,
+                                hash_fn=base.hash_fn, capacity=base.capacity,
+                                halt_fn=lambda state, aux, r: state["sorted"].sum() > 0,
+                                state_specs=base.state_specs)
+    runner = driver.make_iterative_runner(spec, mesh, _cfg(), 4)
+    for _ in range(2):  # the runner kept nothing of the failed warm-up: a retry raises again
+        with pytest.raises(ValueError, match=r"SHARDED carried-state leaf state\['sorted'\]"):
+            runner(inputs, init, 0)
+        assert runner.captures == 0 and not runner._statics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["kmeans", "sort_sharded"])
+def test_cold_graph_runner_warms_up_on_the_jobs_own_round(cuda, monkeypatch, workload):
+    """A cold runner called at round 200 draws, in its eager warm-up, the
+    keystream of round 200 (which its first replay redraws on the same
+    plaintext) and no other round's; a sibling runner's capture runs no
+    crypt. Both equal the eager chunk bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver, shuffle
+    from repro_torch.crypto.chacha import MASK32
+
+    real = shuffle.chacha20_xor_packed
+    seen = []
+
+    def recording(*args, round_dev=None, **kwargs):
+        if not torch.cuda.is_current_stream_capturing():
+            seen.append(None if round_dev is None else int(round_dev.reshape(-1)[0]) & MASK32)
+        return real(*args, round_dev=round_dev, **kwargs)
+
+    monkeypatch.setattr(shuffle, "chacha20_xor_packed", recording)
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case(workload, mesh)
+    runner = driver.make_iterative_runner(spec, mesh, _cfg(), 4)
+    got = runner(inputs, init, 200)
+    assert seen == [200, 200]
+    sibling = driver.make_iterative_runner(spec, mesh, _cfg(), 2, share_with=runner)
+    got2 = sibling(inputs, init, 300)
+    assert seen == [200, 200] and sibling.captures == 1
+    monkeypatch.setattr(shuffle, "chacha20_xor_packed", real)
+    for out, n, offset in ((got, 4, 200), (got2, 2, 300)):
+        want = driver._EagerRunner(spec, mesh, _cfg(), n)(inputs, init, offset)
+        assert out[3:] == want[3:]
+        for a, b in zip(driver.tree_flatten(out[:3])[0], driver.tree_flatten(want[:3])[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_graph_runner_replays_after_the_constant_caches_evict(cuda):
+    """The device constants a captured round reads (block table, exchange
+    ids) stay with the runner's statics: after the LRU caches are cleared
+    and their memory handed out again, the cached runner still equals the
+    eager chunk, and a sibling captured since copies nothing from the host."""
+    import gc
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver, shuffle
+    from repro_torch.kernels.chacha20 import ops, table
+
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case("kmeans", mesh)
+    runner = driver.make_iterative_runner(spec, mesh, _cfg(), 4)
+    runner(inputs, init, 0)
+    for fn in (shuffle._layout_table, shuffle._exchange_ids, table.row_table, ops._zero_id):
+        fn.cache_clear()
+    gc.collect()
+    junk = [torch.full((n,), -7, dtype=torch.int32, device=cuda)  # noqa: F841
+            for n in (16, 64, 128, 256, 512, 1024, 4096) for _ in range(16)]
+    sibling = driver.make_iterative_runner(spec, mesh, _cfg(), 2, share_with=runner)
+    for r, n in ((runner, 4), (sibling, 2), (runner, 4)):
+        got = r(inputs, init, 17)
+        want = driver._EagerRunner(spec, mesh, _cfg(), n)(inputs, init, 17)
+        assert got[3:] == want[3:]
+        for a, b in zip(driver.tree_flatten(got[:3])[0], driver.tree_flatten(want[:3])[0]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kmeans_runner_serves_fits_of_two_sizes_on_the_card(cuda):
+    """One `make_kmeans_runner(...)` fits two sizes of points, each equal bit
+    for bit to the eager fit; its runners hold one capture per size."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.kmeans import kmeans_fit, make_kmeans_runner
+
+    mesh = VirtualMesh(8, cuda)
+    runner = make_kmeans_runner(mesh, 8, secure=_cfg(), threshold=2e-3, rounds_per_dispatch=4)
+    for n in (8 * 2048, 8 * 1024):
+        pts, _ = generate_points(n, 8, d=16, seed=5)
+        got = kmeans_fit(pts, 8, mesh, runner=runner, max_iter=12)
+        want = kmeans_fit(pts, 8, mesh, secure=_cfg(), threshold=2e-3, max_iter=12,
+                          rounds_per_dispatch=4)
+        assert torch.equal(got.centers, want.centers), n
+        assert (got.n_iter, got.center_shift) == (want.n_iter, want.center_shift)
+    assert runner.runners[1].captures == 2

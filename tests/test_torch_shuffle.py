@@ -332,3 +332,124 @@ def test_resolve_coalesce_and_config_copies():
     cfg = _tcfg()
     assert cfg.with_coalesce(None) is cfg and cfg.with_impl(None) is cfg
     assert cfg.with_coalesce(False).coalesce is False and cfg.coalesce is True
+
+
+# --- the round index on the device ---------------------------------------------------
+
+
+@pytest.mark.parametrize("round_id", [0, 1, 7, 2**31, 2**32 - 1, 2**32 + 5])
+def test_chacha_plain_round_dev_equals_round_xored_into_the_nonce(round_id):
+    """The plain version's `round_dev` (int32 bits or an int64 value) keys the
+    same keystream as the round XORed into nonce word 1 on the host."""
+    rng = np.random.default_rng(round_id % 97)
+    t = {k: v[None] for k, v in _torch_tree(_np_tree(rng, (4,), 5)).items()}
+    wire, layout, _ = tsh._pack_wire_coalesced(t, lead=2)
+    flat = wire.reshape(4, -1)
+    table = tsh._layout_table(layout, flat.device)
+    ids = torch.arange(4, dtype=torch.int32)
+    want = chacha20_xor_packed_ref(flat, table, KW, tsh._round_nonce(_tcfg(), round_id), 9,
+                                   ids, ids)
+    for rd in (torch.tensor([round_id & 0xFFFFFFFF], dtype=torch.int64),
+               torch.tensor(round_id & 0xFFFFFFFF, dtype=torch.int64).to(torch.int32)):
+        got = chacha20_xor_packed_ref(flat, table, KW, NW, 9, ids, ids, round_dev=rd.reshape(1))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("coalesce", [True, False])
+@pytest.mark.parametrize("round_id", [3, 2**31, 2**32 - 1])
+def test_keyed_all_to_all_device_round_equals_host_round(coalesce, round_id):
+    """A round index given as a device tensor (int64 value, or int32 u32 bits)
+    gives the host int's ciphertext and received tree, on both wires."""
+    rng = np.random.default_rng(11)
+    r = 4
+    tree = {k: torch.as_tensor(v.reshape((r, r) + v.shape[1:]))
+            for k, v in {"f": rng.normal(size=(r * r, 3, 2)).astype(np.float32),
+                         "k": rng.integers(-5, 100, (r * r, 3)).astype(np.int32)}.items()}
+    mesh = VirtualMesh(r, "cpu")
+    cfg = _tcfg(coalesce)
+    want = tsh.keyed_all_to_all(tree, mesh, cfg, round_index=round_id)
+    wire, layout, _ = tsh._pack_wire_coalesced(tree, lead=2)
+    flat = wire.reshape(r * r, -1)
+    ids = tsh._exchange_ids(r, r, flat.device)
+    ct = tsh._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], round_id)
+    bits32 = torch.tensor(round_id).to(torch.int32).reshape(1)  # two's complement wrap
+    for rd in (torch.tensor(round_id), bits32):
+        got = tsh.keyed_all_to_all(tree, mesh, cfg, round_index=rd)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert torch.equal(tsh._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], rd), ct)
+
+
+# --- wire accounting -----------------------------------------------------------------
+
+
+def test_wire_accounting_sinks_are_removed_by_identity():
+    """Contexts may exit out of stack order; each sink keeps what was recorded
+    while it was open."""
+    acc = tsh.wire_accounting
+    tree = {"k": torch.zeros((2, 2, 3), dtype=torch.int32)}
+    mesh = VirtualMesh(2, "cpu")
+    a, b = tsh.record_wire_bytes(), tsh.record_wire_bytes()
+    ra = a.__enter__()
+    tsh.keyed_all_to_all(tree, mesh)
+    rb = b.__enter__()
+    tsh.keyed_all_to_all(tree, mesh)
+    a.__exit__(None, None, None)
+    tsh.keyed_all_to_all(tree, mesh)
+    b.__exit__(None, None, None)
+    assert (len(ra), len(rb)) == (2, 2)
+    assert not acc.enabled and not acc._sinks
+
+
+def test_wire_accounting_suppressed_tagged_isolated_and_emit():
+    acc = tsh.wire_accounting
+    tree = {"k": torch.zeros((2, 2, 3), dtype=torch.int32)}
+    mesh = VirtualMesh(2, "cpu")
+    with tsh.record_wire_bytes() as outer:
+        with acc.suppressed(), acc.suppressed():
+            tsh.keyed_all_to_all(tree, mesh)
+        assert outer == [] and acc.enabled
+        with acc.tagged("j1"), acc.tagged(None):
+            tsh.keyed_all_to_all(tree, mesh)
+            with acc.isolated() as kept:  # the open sink and the tag are set aside
+                tsh.keyed_all_to_all(tree, mesh, _tcfg(), round_index=2)
+            assert len(outer) == 1 and len(kept) == 1 and kept[0]["job"] is None
+            acc.emit(kept * 3)  # replayed rounds re-emit the captured record
+        with acc.tagged("j2"):
+            acc.emit(kept)
+    assert [r["job"] for r in outer] == ["j1"] * 4 + ["j2"]
+    assert [r["secure"] for r in outer] == [False] + [True] * 4
+    assert outer[1] is not kept[0] and not acc._tags
+
+
+# --- device constants pinned for captured rounds --------------------------------------
+
+
+def test_pinned_constants_keep_what_a_round_read_after_the_caches_evict():
+    """A round run inside `pinned_constants(store)` takes its block table and
+    exchange ids through the store, which keeps them: after the LRU caches
+    are cleared the store still hands back the same tensors (a captured
+    graph keeps their addresses), outside it the caches build new ones, and
+    the innermost store wins."""
+    from repro_torch.device import device_constant, pinned_constants
+
+    mesh = VirtualMesh(2, "cpu")
+    tree = {"k": torch.arange(2 * 2 * 5, dtype=torch.int32).reshape(2, 2, 5)}
+    store = {}
+    with pinned_constants(store):
+        ct = tsh.keyed_all_to_all(tree, mesh, _tcfg(), round_index=3)
+    assert {k[0] for k in store} == {tsh._layout_table, tsh._exchange_ids}
+    held = dict(store)
+    tsh._layout_table.cache_clear()
+    tsh._exchange_ids.cache_clear()
+    with pinned_constants(store):
+        again = tsh.keyed_all_to_all(tree, mesh, _tcfg(), round_index=3)
+        assert device_constant(tsh._exchange_ids, 2, 2, torch.device("cpu")) is \
+            held[(tsh._exchange_ids, (2, 2, torch.device("cpu")))]
+        with pinned_constants({}) as inner:
+            fresh = device_constant(tsh._exchange_ids, 2, 2, torch.device("cpu"))
+        assert fresh is not held[(tsh._exchange_ids, (2, 2, torch.device("cpu")))]
+        assert list(inner.values()) == [fresh]
+    assert store == held and all(store[k] is held[k] for k in held)
+    assert device_constant(tsh._exchange_ids, 2, 2, torch.device("cpu")) is fresh  # the cache
+    assert torch.equal(again["k"], ct["k"]) and torch.equal(ct["k"], tree["k"].transpose(0, 1))

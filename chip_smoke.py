@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs eleven phases, each printing one JSON line:
+then runs twelve phases, each printing one JSON line, and a thirteenth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -15,8 +15,9 @@ then runs eleven phases, each printing one JSON line:
                  at a 64 MiB wire with random counters (wrapping at 2**32),
                  for both kernel designs (4 lanes per block, the default, and
                  one thread per block); on the main path's packed wire, card
-                 == CPU plain version; each design's device time by
-                 torch.profiler (`kernel_ms`) and the wrapper-inclusive time
+                 == CPU plain version; each design's device time (`kernel_ms`:
+                 20 calls in one CUDA graph, its replays timed by CUDA
+                 events) and the wrapper-inclusive time
                  by CUDA events (`call_ms`); the round id read from device
                  memory (`round_dev`) == the by-value round bit for bit at
                  rounds 0, 1, 2**31, 2**32-1 on both designs, and its time
@@ -34,7 +35,9 @@ then runs eleven phases, each printing one JSON line:
                  bit for bit; kernel, plain and cuBLAS distance-product times,
                  the time of each kernel inside the call (assign, accumulate,
                  CTA reduce; torch.profiler), and two bounds: FP32 CUDA cores
-                 (bound_ms) and 3xTF32 on the tensor cores (bound_tc_ms)
+                 (bound_ms) and 3xTF32 on the tensor cores (bound_tc_ms);
+                 the same checks and figures at D=128, K=1024 (`d128_k1024`,
+                 2 GiB of points; the plain version timed on one shard)
   kmeans_fit     secure k-means, 4,194,304 x 64 points, K=256, 8 virtual
                  shards, to the paper's threshold; kernel launches counted on
                  this run alone; plaintext fit identical bit for bit; the
@@ -70,11 +73,32 @@ then runs eleven phases, each printing one JSON line:
                  launch calls and device operations, k-means copy-in/out
                  ms, pool bytes, peak memory, and the kernels' launches on
                  the path by profiler
+  enclave        SecVM at 2**24 lanes == its oracle (rtol 1e-5), run_encrypted
+                 clean under set_sync_debug_mode("error"), one kernel sequence
+                 for two programs of one length (three calls each in turns
+                 in one profiler session of a fresh child process, split at
+                 marker kernels; each program's sequence the one two of its
+                 calls agree on), ms per instruction; SecVM as
+                 the map function of a secure run_mapreduce on 8 shards (exact
+                 sums, 4 ChaCha launches: the round's two crypts and the
+                 program's decryption); the port's quickstart (cluster and
+                 device word count); the cluster k-means == make_kmeans_step on
+                 the card (rtol 1e-4, atol 1e-5); mac_tag_words == mac_tag_host
+                 at 1,024, 2**20 and 2**22 words, its time at 2**28 words
+                 against the bytes bound; the kernels' launches on this path
+                 (its own calls, not the check's reference step: ChaCha > 0,
+                 k-means 0, as the cluster k-means runs on the host)
+  memory         the device bytes that collecting the interpreter's
+                 reference cycles freed after each phase (collected before
+                 the next phase, whose peak memory then counts only what is
+                 alive)
   kernels        per kernel: launches on the main path, time, bound, plain
-                 and library times; the ChaCha20 kernel's launches on each
-                 path (k-means, sort, grep, wordcount), each counted from 0
-                 just before that path's run, and on the serve path (by
-                 profiler: replayed graphs bypass the wrappers' counters)
+                 and library times; each kernel's launches on each path
+                 (ChaCha20: k-means, sort, grep, wordcount, enclave; k-means:
+                 k-means), each counted from 0 just before that
+                 path's run, and on the serve path (by profiler: replayed
+                 graphs bypass the wrappers' counters); the k-means kernel's
+                 D=128, K=1024 figures
 
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero. It needs a CUDA card and the
@@ -85,6 +109,9 @@ commit's own chip_smoke.py from its checkout in the same chip call.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import io
 import json
 import os
 import re
@@ -117,6 +144,10 @@ SORT_N, SORT_SEED, SORT_ROUNDS, SORT_BALANCE = 2**24, 0, 6, 1.5
 # grep and wordcount: 2**26 Zipf tokens over 65,536 words; 16 patterns of ranks 64-4096
 N_TOKENS, VOCAB, TOKEN_SEED = 2**26, 65536, 0
 GREP_SEED, GREP_PATTERNS, GREP_ROUNDS = 1, 16, 16
+# k-means past the old (K, D) range: 4,194,304 x 128 points, K=1024
+WIDE_D, WIDE_K, WIDE_SEED = 128, 1024, 1
+# enclave: SecVM lanes, MAC words checked against the host tag and timed
+SECVM_LANES, MAC_WORDS_CHECKED, MAC_WORDS_TIMED = 2**24, (1024, 2**20, 2**22), 2**28
 
 
 def emit(obj) -> None:
@@ -141,6 +172,18 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def collect_garbage() -> int:
+    """Device bytes freed by collecting the interpreter's reference cycles.
+
+    Called after each phase, so the next phase starts with only what is
+    really alive: a peak-memory figure would otherwise count whatever cyclic
+    garbage the collector had not reached yet."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    return before - torch.cuda.memory_allocated()
 
 
 def u32(a, dev):
@@ -246,7 +289,7 @@ def phase_chacha(dev):
             torch.cuda.synchronize()
             check(torch.equal(y, y_ref), f"chacha20 kernel (lanes={lanes}) != plain at {label}")
             res[f"kernel_ms_lanes{lanes}"] = kernel_device_ms(
-                lambda: ck.chacha20_xor_packed_cuda(*args, lanes=lanes), "chacha20_xor_packed", 20)
+                lambda: ck.chacha20_xor_packed_cuda(*args, lanes=lanes), 20)
             # the round id read from device memory: the by-value round's bits
             for rnd in (0, 1, 2**31, 2**32 - 1):
                 xored = np.asarray(nonce, np.uint64).astype(np.uint32)
@@ -259,8 +302,7 @@ def phase_chacha(dev):
                 check(torch.equal(got, want) and (rnd or torch.equal(got, y)),
                       f"chacha20 round_dev (lanes={lanes}, round {rnd}) != by value at {label}")
             res[f"kernel_ms_round_dev_lanes{lanes}"] = kernel_device_ms(
-                lambda: ck.chacha20_xor_packed_cuda(*args, round_dev=rd, lanes=lanes),
-                "chacha20_xor_packed", 20)
+                lambda: ck.chacha20_xor_packed_cuda(*args, round_dev=rd, lanes=lanes), 20)
         n_blocks = rows * blocks
         nbytes = 2 * x.numel() * 4 + table.words.numel() * 4 + 2 * rows * 4
         lanes = ck.lanes_for(rows * blocks, x.device)
@@ -269,7 +311,7 @@ def phase_chacha(dev):
             "kernel_ms": res[f"kernel_ms_lanes{lanes}"],
             "kernel_ms_round_dev": res[f"kernel_ms_round_dev_lanes{lanes}"],
             # the same bytes through a plain elementwise XOR: what moving them costs
-            "xor_copy_ms": kernel_device_ms(lambda: torch.bitwise_xor(x, 5), "", 20),
+            "xor_copy_ms": kernel_device_ms(lambda: torch.bitwise_xor(x, 5), 20),
             "call_ms": cuda_ms(lambda: ck.chacha20_xor_packed_cuda(*args), reps),
             "plain_ms": cuda_ms(lambda: cr.chacha20_xor_packed_ref(*args),
                                 3 if blocks < 1000 else 1, 1),
@@ -298,23 +340,21 @@ def phase_chacha(dev):
     return out
 
 
-def kernel_device_ms(fn, name: str, reps: int) -> float:
-    """Mean device ms per call of the kernels whose name holds `name`, over
-    `reps` warm calls, by torch.profiler."""
+def kernel_device_ms(fn, reps: int) -> float:
+    """Mean device ms per call of `fn`, a call that runs the timed kernel
+    and nothing else on the card: `reps` warm calls captured in one CUDA
+    graph, three replays timed by CUDA events, so the host's launch gaps
+    drop out. Not by torch.profiler: on the card it now and then loses a
+    whole session's records."""
     fn()
     torch.cuda.synchronize()
-
-    def runs():
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-
-    events = _device_events(runs)[1]
-    hits = [ms for op, ms in events if name in op]
-    # the profiler now and then misses one launch of a run; the mean is
-    # over the launches it saw
-    check(len(hits) >= reps - 2, f"profiler saw {len(hits)} launches of {name}, not {reps}")
-    return sum(hits) / len(hits)
+    ms = cuda_ms(graph.replay, 3, 1) / reps
+    del graph
+    return ms
 
 
 def _round_tree(rng, rows: int = SHARDS, n_shards: int = SHARDS):
@@ -327,7 +367,12 @@ def _round_tree(rng, rows: int = SHARDS, n_shards: int = SHARDS):
                   "s": torch.as_tensor(rng.random((n_shards, rows, cap, D)).astype(np.float32))}}
 
 
-def phase_kmeans_assign(dev, points, centers):
+def _kmeans_assign_case(dev, points, centers, plain_points):
+    """Check and time the k-means kernel at one shape: sums/counts against
+    the plain accumulate fed its assignments (per shard), assignments
+    against the plain version outside near-ties, two runs equal bit for bit;
+    its time, the time of each kernel inside the call, the plain version's
+    time on `plain_points` shards, cuBLAS's distance product, and bounds."""
     from repro_torch.kernels.kmeans import kernel as kk, ref as kr
 
     s, n, d = points.shape
@@ -337,11 +382,16 @@ def phase_kmeans_assign(dev, points, centers):
     a2, s2, c2 = kk.kmeans_assign_cuda(points, centers, weights)
     torch.cuda.synchronize()
     check(torch.equal(a1, a2) and torch.equal(s1, s2) and torch.equal(c1, c2),
-          "kmeans kernel not deterministic")
-    ps, pc = kr.kmeans_accumulate_ref(points, a1, weights, k)
-    check(torch.allclose(s1, ps, rtol=1e-5, atol=1e-5), "kmeans sums vs plain accumulate")
-    check(torch.allclose(c1, pc, rtol=1e-6, atol=0.0), "kmeans counts vs plain accumulate")
-    max_err = float((s1 - ps).abs().max())
+          f"kmeans kernel not deterministic at D={d}, K={k}")
+    max_err = 0.0
+    for sh in range(s):  # per shard: the one-hot of a shard at K=1024 is 4 GiB
+        ps, pc = kr.kmeans_accumulate_ref(points[sh], a1[sh], weights[sh], k)
+        check(torch.allclose(s1[sh], ps, rtol=1e-5, atol=1e-5),
+              f"kmeans sums vs plain accumulate at D={d}, K={k}")
+        check(torch.allclose(c1[sh], pc, rtol=1e-6, atol=0.0),
+              f"kmeans counts vs plain accumulate at D={d}, K={k}")
+        max_err = max(max_err, float((s1[sh] - ps).abs().max()))
+        del ps, pc
 
     # plain assignments, with near-ties: the two smallest plain d2 closer than
     # 1e-5 of the operands' magnitude |x|^2 + |c|^2 (the rounding scale of
@@ -361,13 +411,15 @@ def phase_kmeans_assign(dev, points, centers):
             ties += int(tie.sum())
             total_mism += int(diff.sum())
             mism += int((diff & ~tie).sum())
-    check(mism == 0, f"{mism} assignments differ from the plain version outside near-ties")
+    check(mism == 0, f"{mism} assignments differ from the plain version outside near-ties "
+          f"at D={d}, K={k}")
+    del a1, s1, c1, a2, s2, c2
 
     flat = points.reshape(-1, d)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        library_ms = cuda_ms(lambda: torch.matmul(flat, centers.T), 10)
+        library_ms = cuda_ms(lambda: torch.matmul(flat, centers.T), 5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     n_all = s * n
@@ -385,21 +437,42 @@ def phase_kmeans_assign(dev, points, centers):
     # device time of each kernel inside the one call, by torch.profiler
     _, _, top = _profiled(five_runs)
     kernel_ms = {name: sum(ms for op, ms in top if name in op) / 5 or None
-                 for name in ("kmeans_assign_kernel", "kmeans_accumulate_kernel",
-                              "kmeans_reduce_kernel")}
-    res = {"phase": "kmeans_assign", "shards": s, "points_per_shard": n, "d": d, "k": k,
-           "near_ties": ties, "mismatches": total_mism, "mismatches_outside_ties": mism, "deterministic": True,
-           "max_abs_err": max_err,
-           "ms": cuda_ms(run, 10),
-           "kernel_ms": kernel_ms,
-           "plain_ms": cuda_ms(lambda: kr.kmeans_assign_ref(points, centers, weights), 2, 1),
-           "library_ms": library_ms, "library_call": "torch.matmul(points, centers.T) FP32, "
-           "allow_tf32=False: the distance product alone",
-           "bound_ms": 1e3 * max(ops_ / PEAK_F32_S, bytes_ / PEAK_BYTES_S),
-           "bound_by": "operations" if ops_ / PEAK_F32_S > bytes_ / PEAK_BYTES_S else "bytes",
-           "bound_tc_ms": 1e3 * max(ops_tc / PEAK_TF32_S, bytes_ / PEAK_BYTES_S),
-           "bound_tc_by": "operations" if ops_tc / PEAK_TF32_S > bytes_ / PEAK_BYTES_S
-           else "bytes"}
+                 for name in ("kmeans_assign_kernel", "kmeans_assign_dchunk_kernel",
+                              "kmeans_accumulate_kernel", "kmeans_reduce_kernel")}
+    pp, pw = points[:plain_points], weights[:plain_points]
+    return {"shards": s, "points_per_shard": n, "d": d, "k": k,
+            "near_ties": ties, "mismatches": total_mism, "mismatches_outside_ties": mism,
+            "deterministic": True, "max_abs_err": max_err,
+            "ms": cuda_ms(run, 10),
+            "kernel_ms": kernel_ms,
+            "plain_ms": cuda_ms(lambda: kr.kmeans_assign_ref(pp, centers, pw), 2, 1),
+            "plain_shards": plain_points,
+            "library_ms": library_ms, "library_call": "torch.matmul(points, centers.T) FP32, "
+            "allow_tf32=False: the distance product alone",
+            "bound_ms": 1e3 * max(ops_ / PEAK_F32_S, bytes_ / PEAK_BYTES_S),
+            "bound_by": "operations" if ops_ / PEAK_F32_S > bytes_ / PEAK_BYTES_S else "bytes",
+            "bound_tc_ms": 1e3 * max(ops_tc / PEAK_TF32_S, bytes_ / PEAK_BYTES_S),
+            "bound_tc_by": "operations" if ops_tc / PEAK_TF32_S > bytes_ / PEAK_BYTES_S
+            else "bytes",
+            "bound_bytes_ms": 1e3 * bytes_ / PEAK_BYTES_S}
+
+
+def phase_kmeans_assign(dev, points, centers):
+    """The main path's shape, then D=128, K=1024 (past the range the kernel
+    took before it walked D in chunks): 2 GiB of seeded points made on the
+    card around 1,024 centres, the first 1,024 points as the centres."""
+    res = {"phase": "kmeans_assign",
+           **_kmeans_assign_case(dev, points, centers, points.shape[0])}
+    g = torch.Generator(device=dev).manual_seed(WIDE_SEED)
+    s, n = points.shape[:2]
+    true_c = 0.1 + 0.8 * torch.rand((WIDE_K, WIDE_D), generator=g, device=dev)
+    idx = torch.randint(0, WIDE_K, (s * n,), generator=g, device=dev)
+    wide = true_c[idx] + 0.05 * torch.randn((s * n, WIDE_D), generator=g, device=dev)
+    del idx
+    wide = wide.reshape(s, n, WIDE_D)
+    res["d128_k1024"] = _kmeans_assign_case(dev, wide, wide[0, :WIDE_K].contiguous(), 1)
+    del wide
+    torch.cuda.empty_cache()
     emit(res)
     return res
 
@@ -427,6 +500,38 @@ def _device_events(fn):
                      and "spin_kernel" not in e.name),
                     key=lambda e: e.time_range.start)
     return out, [[e.name, e.time_range.elapsed_us() / 1e3] for e in events]
+
+
+def _kernel_sequences(fns) -> list:
+    """Each fn's device events (names, in order), all in one profiler
+    session, told apart by spin-kernel markers: before each fn and after the
+    last. The profiler has been seen to lose the first kernel launched after
+    a synchronise, so a sacrificial spin kernel goes first after each one;
+    empty segments (both spins recorded) are skipped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for fn in list(fns) + [None]:
+            torch.cuda._sleep(1000)  # sacrificial
+            torch.cuda._sleep(1000)  # marker
+            if fn is not None:
+                fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    segments, cur = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if cur:
+                segments.append(tuple(cur))
+            cur = []
+        elif cur is not None:
+            cur.append(e.name)
+    spins = sum("spin_kernel" in e.name for e in events)
+    check(len(segments) == len(fns), f"profiler: {len(segments)} marked segments, not "
+          f"{len(fns)} ({spins} of {2 * len(fns) + 2} spin kernels recorded)")
+    return segments
 
 
 def _count_syncs(fn):
@@ -485,7 +590,7 @@ def phase_crypt_call(dev, points):
         def crypt():
             return shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0], ids[1], 3)
 
-        res[f"kernel_ms_{label}"] = kernel_device_ms(crypt, "chacha20", 20)
+        res[f"kernel_ms_{label}"] = kernel_device_ms(crypt, 20)
         if label != "wire":
             continue
         res["wire_words"] = int(flat.shape[1])
@@ -641,16 +746,15 @@ def graph_fit(dev, points, mesh, eager):
     g2 = prof[1]
     check(torch.equal(prof[0].centers, eager.centers), "graph-runner fit not repeatable")
     (_, syncs) = _count_syncs(fit)
-    runners = list(runner.runners.values())
     return {"first_fit_s": cold_s, "fit_s": min(g1, g2), "fit_s_runs": [g1, g2],
             "ms_per_round": 1e3 * min(g1, g2) / cold.n_iter, "n_iter": cold.n_iter,
             "rounds_dispatched": cold.n_rounds_dispatched, "n_dispatches": cold.n_dispatches,
             "device_busy_ms": busy_ms,
             "device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * g2),
             "top_device_ops": top, "syncs_per_fit": syncs,
-            "chunk_sizes": sorted(runner.runners),
-            "captures": sum(r.captures for r in runners),
-            "pool_bytes": [r.pool_bytes for r in runners], "equals_eager": True}
+            "chunk_sizes": sorted(runner.runners.keys()),
+            "captures": runner.runners.captures(),
+            "pool_bytes": runner.runners.pool_bytes(), "equals_eager": True}
 
 
 def phase_parity_small(dev):
@@ -697,7 +801,7 @@ def wire_crypt(dev, tree, reps: int, round_id: int):
     round, (S, R, C) leaves): the shuffle's crypt on the card against the
     plain version on the same wire, table, ids and round, bit for bit (row
     groups of at most 2**20 blocks, so the plain version's temporaries stay
-    small); then device ms per launch by torch.profiler, the lanes chosen,
+    small); then device ms per launch (`kernel_device_ms`), the lanes chosen,
     and the bytes bound (wire words read and written once, plus the block
     table and ids, over 3.35 TB/s)."""
     from repro_torch.core import shuffle
@@ -725,7 +829,7 @@ def wire_crypt(dev, tree, reps: int, round_id: int):
     ops_ = blocks * CHACHA_OPS_PER_BLOCK
     ms = kernel_device_ms(lambda: shuffle._crypt_wire_coalesced(flat, layout, cfg, ids[0],
                                                                 ids[1], round_id),
-                          "chacha20", reps)
+                          reps)
     del wire, flat
     return {"wire_bytes": s * r * layout.payload_words * 4, "blocks": blocks,
             "leaves": len(layout.leaves), "round_id": round_id, "bit_exact": True,
@@ -1034,6 +1138,221 @@ def phase_wordcount(dev, tokens_np, tokens):
     return res
 
 
+ENCLAVE_LINES = [
+    "the quick brown fox jumps over the lazy dog",
+    "mapreduce inside enclaves keeps the data private",
+    "the router only ever sees ciphertext",
+] * 5
+
+
+def _secvm_programs():
+    """Two programs of one length: r0 = 2x^2 + 3x + 1 (NOP-padded) and a
+    distance sqrt((x-a)^2 + (y-b)^2); x in r1, y in r2."""
+    from repro_torch.core import secvm
+
+    poly = secvm.assemble([("LOADC", 2, 0, 0), ("LOADC", 3, 0, 1), ("LOADC", 0, 0, 2),
+                           ("MUL", 4, 1, 1), ("FMA", 0, 4, 2), ("FMA", 0, 1, 3),
+                           ("NOP", 0, 0, 0)], consts=[2.0, 3.0, 1.0])
+    dist = secvm.assemble([("LOADC", 3, 0, 0), ("LOADC", 4, 0, 1), ("SUB", 5, 1, 3),
+                           ("SUB", 6, 2, 4), ("MUL", 5, 5, 5), ("FMA", 5, 6, 6),
+                           ("SQRT", 0, 5, 0)], consts=[0.5, -1.5, 0.0])
+    return poly, dist
+
+
+def secvm_kernel_sequences() -> dict:
+    """The profiler's kernel sequences of the two SecVM programs' warm
+    run_encrypted at 2**24 lanes, three calls of each in turns in one
+    session; each program's sequence is the one two of its calls agree on.
+    Run in a fresh process (`_in_fresh_process`), which starts with no
+    profiler session behind it."""
+    from repro_torch.core import secvm
+    from repro_torch.crypto import chacha
+
+    dev = torch.device("cuda")
+    kw, nw = chacha.key_to_words(KEY), chacha.nonce_to_words(b"\x0b" * 12)
+    x = np.random.default_rng(5).normal(size=(2, SECVM_LANES)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    calls = []
+    for prog in _secvm_programs():
+        code_ct, consts_ct = secvm.encrypt_program(prog, kw, nw, 21, device=dev)
+        secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 21)  # warm
+        calls.append(lambda c=code_ct, k=consts_ct: secvm.run_encrypted(c, k, xd, kw, nw, 21))
+    seqs = _kernel_sequences(calls * 3)
+    out = {"agreed": [], "calls_disagreeing": 0}
+    for i in (0, 1):
+        mine = seqs[i::2]
+        best = max(set(mine), key=mine.count)
+        check(mine.count(best) >= 2, "no two calls' kernel sequences agree")
+        out["agreed"].append(best)
+        out["calls_disagreeing"] += 3 - mine.count(best)
+    return out
+
+
+def _in_fresh_process(fn_name: str) -> dict:
+    """Run `fn_name()` of this script in a child process on the same card and
+    return its JSON result; the child is waited for."""
+    code = (f"import json, sys; sys.path.insert(0, {SRC!r}); sys.path.insert(0, {ROOT!r}); "
+            f"import chip_smoke; print(json.dumps(chip_smoke.{fn_name}()))")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=600)
+    check(p.returncode == 0, f"{fn_name} in a child process failed:\n{p.stderr[-3000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def phase_enclave(dev):
+    """The enclave layers on the card: SecVM, the MAC, the cluster runtime.
+
+    SecVM at 2**24 lanes against its oracle (rtol 1e-5), warm run_encrypted
+    under set_sync_debug_mode("error"), the profiler's kernel sequence of two
+    programs of one length, ms per instruction; SecVM as the map function of
+    a secure run_mapreduce on 8 shards (integer-valued, so the float sums are
+    exact in any order); mac_tag_words == mac_tag_host at 1,024, 2**20 and
+    2**22 words and its time at 2**28 against the bytes bound; the port's
+    quickstart (the cluster word count, and the device word count on the
+    card); the cluster k-means held to make_kmeans_step on the card (rtol
+    1e-4, atol 1e-5). The ChaCha and k-means kernels' launches are counted
+    from 0 over the path's own calls (the SecVM map job, the quickstart, the
+    cluster k-means), before the check's reference step: ChaCha launches,
+    the k-means kernel does not (the cluster k-means runs on the host)."""
+    from repro_torch import VirtualMesh
+    from repro_torch import quickstart
+    from repro_torch.core import secvm
+    from repro_torch.core.engine import MapReduceSpec, identity_hash, run_mapreduce
+    from repro_torch.core.grep import segment_sum
+    from repro_torch.core.kmeans import generate_points, make_kmeans_step
+    from repro_torch.crypto import chacha, ctr, mac
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.runtime.jobs import make_cluster, run_kmeans
+
+    res = {"phase": "enclave"}
+    kw, nw = chacha.key_to_words(KEY), chacha.nonce_to_words(b"\x0b" * 12)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, SECVM_LANES)).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    progs = _secvm_programs()
+    per = {}
+    for name, prog in zip(("poly", "dist"), progs):
+        code_ct, consts_ct = secvm.encrypt_program(prog, kw, nw, 21, device=dev)
+        got = secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 21)
+        want = secvm.run_oracle(prog, x)
+        check(np.allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-5, equal_nan=True),
+              f"SecVM {name} program differs from its oracle")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 21)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        run = lambda: secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 21)  # noqa: E731
+        # the call, then its two parts: decryption (two ChaCha20 kernel
+        # launches) and the interpreter
+        blocks = -(-code_ct.numel() // 16)
+
+        def decrypt():
+            return (ctr.decrypt_array(code_ct, kw, nw, 21),
+                    ctr.decrypt_array(consts_ct, kw, nw, 21 + blocks))
+
+        code, consts = decrypt()
+        interp_ms = cuda_ms(lambda: secvm.run_program(code, consts, xd), 3)
+        _, busy_ms, _ = _profiled(lambda: (run(), torch.cuda.synchronize()))
+        per[name] = {"ms": cuda_ms(run, 3), "decrypt_ms": cuda_ms(decrypt, 3),
+                     "interpret_ms": interp_ms, "ms_per_instruction": interp_ms / prog.length,
+                     "device_busy_ms": busy_ms,
+                     "max_abs_err": float(np.nanmax(np.abs(got.cpu().numpy() - want)))}
+    seq = _in_fresh_process("secvm_kernel_sequences")
+    kernels = [list(k) for k in seq["agreed"]]
+    odd_sessions = seq["calls_disagreeing"]
+    for name, k in zip(("poly", "dist"), kernels):
+        per[name]["device_ops"] = len(k)
+    if kernels[0] != kernels[1]:
+        j = next((i for i, (a, b) in enumerate(zip(*kernels)) if a != b), None)
+        check(False, "two SecVM programs of one length ran other kernels: "
+              f"{len(kernels[0])} and {len(kernels[1])} kernels, first difference at {j}: "
+              f"{kernels[0][max(0, j - 2):j + 3] if j is not None else ''} | "
+              f"{kernels[1][max(0, j - 2):j + 3] if j is not None else ''}")
+    res["secvm"] = {"lanes": SECVM_LANES, "instructions": progs[0].length,
+                    "oracle_rtol": 1e-5, "sync_free": True, "identical_kernel_sequence": True,
+                    "profiled_calls_disagreeing": odd_sessions, **per}
+
+    # -- the enclave path: its kernels' launches counted from 0 ----------------
+    torch.cuda.synchronize()
+    ck.launches = kk.launches = 0
+    mesh = VirtualMesh(SHARDS, dev)
+    n_map = 2**22
+    keys = np.arange(n_map, dtype=np.int32) % 64
+    vals = rng.integers(0, 10, n_map).astype(np.float32)  # f(x) sums stay exact
+    code_ct, consts_ct = secvm.encrypt_program(progs[0], kw, nw, 0, device=dev)
+
+    def map_fn(k, v):
+        out = secvm.run_encrypted(code_ct, consts_ct, v.reshape(1, -1), kw, nw, 0)
+        return k, out.reshape(v.shape)
+
+    def reduce_fn(k, v, valid):
+        return mesh.psum(segment_sum(torch.where(valid, v, 0.0), torch.where(valid, k, -1), 64))
+
+    before = ck.launches
+    (out, dropped), map_s = timed(lambda: run_mapreduce(
+        MapReduceSpec(map_fn, reduce_fn, hash_fn=identity_hash, capacity=n_map // SHARDS),
+        keys, vals, mesh, secure=_secure_cfg()))
+    v64 = vals.astype(np.float64)
+    want = np.bincount(keys, weights=2 * v64 ** 2 + 3 * v64 + 1, minlength=64)
+    check(int(dropped) == 0 and np.array_equal(out.cpu().numpy(), want.astype(np.float32)),
+          "SecVM map function in a secure run_mapreduce")
+    # the round's two crypts, and the program's decryption (code, consts) in the map
+    check(ck.launches - before == 4, "a secure run_mapreduce round with SecVM as its map "
+          "is 4 ChaCha launches")
+    res["secvm_mapreduce"] = {"shards": SHARDS, "values": n_map, "job_s": map_s,
+                              "chacha_launches": ck.launches - before, "exact": True}
+
+    with contextlib.redirect_stdout(io.StringIO()):  # its report, not a phase line
+        counts, hist = quickstart.main([])
+    words = {}
+    for line in ENCLAVE_LINES:
+        for w in line.split():
+            words[w] = words.get(w, 0) + 1
+    check(counts == words and hist.device.type == "cuda", "quickstart word counts")
+    pts, _ = generate_points(120, 4, d=2, seed=2)
+    cluster, client, _ = make_cluster(7)
+    centers, hist_k = run_kmeans(cluster, client, pts, 4, n_mappers=4, n_reducers=2, max_iter=2,
+                                 threshold=0.0)
+    # the path ends here: the cluster k-means runs on the host and launches no
+    # k-means kernel; the check's own make_kmeans_step below is not counted
+    torch.cuda.synchronize()
+    res["launches"] = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
+    check(res["launches"]["chacha20"] > 0 and res["launches"]["kmeans_assign"] == 0,
+          f"enclave path: {res['launches']}")
+    step = make_kmeans_step(VirtualMesh(1, dev))
+    ref = torch.from_numpy(pts[:4]).to(dev)
+    for _ in range(len(hist_k)):
+        ref, _ = step(torch.from_numpy(pts).to(dev), torch.ones(len(pts), device=dev), ref)
+    check(np.allclose(centers, ref.cpu().numpy(), rtol=1e-4, atol=1e-5),
+          "cluster k-means differs from make_kmeans_step on the card")
+    res["cluster"] = {"wordcount_words": len(counts), "kmeans_iterations": len(hist_k),
+                      "kmeans_matches_card_step": True}
+
+    # -- the MAC -------------------------------------------------------------
+    rs, ss = mac.mac_keys_from_keystream(kw, nw, 3)
+    for n in MAC_WORDS_CHECKED:
+        msg = rng.integers(0, 2**32, n, dtype=np.uint32)
+        tag = mac.mac_tag_words(torch.from_numpy(msg.view(np.int32)).to(dev), rs, ss)
+        check(np.array_equal(tag.cpu().numpy().view(np.uint32), mac.mac_tag_host(msg, rs, ss)),
+              f"mac_tag_words on the card != mac_tag_host at {n} words")
+    big = torch.randint(-2**31, 2**31, (MAC_WORDS_TIMED,), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    t1 = mac.mac_tag_words(big, rs, ss)
+    check(torch.equal(t1, mac.mac_tag_words(big, rs, ss)), "mac_tag_words not deterministic")
+    mac_bytes = MAC_WORDS_TIMED * 4 + 4 * 4
+    res["mac"] = {"checked_words": list(MAC_WORDS_CHECKED), "equals_host": True,
+                  "timed_words": MAC_WORDS_TIMED,
+                  "ms": cuda_ms(lambda: mac.mac_tag_words(big, rs, ss), 3, 1),
+                  "bound_ms": 1e3 * mac_bytes / PEAK_BYTES_S, "bound_by": "bytes"}
+    del big
+    torch.cuda.empty_cache()
+    emit(res)
+    return res
+
+
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
 SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
@@ -1268,25 +1587,40 @@ def main(argv=None) -> int:
     pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)
     points = torch.from_numpy(pts_np).to(dev)
     del pts_np
+    freed = {}
     km = phase_kmeans_assign(dev, points.reshape(SHARDS, -1, D), points[:K].contiguous())
+    freed["kmeans_assign"] = collect_garbage()
     crypt = phase_crypt_call(dev, points)
+    freed["crypt_call"] = collect_garbage()
     fit = phase_kmeans_fit(dev, points)
+    freed["kmeans_fit"] = collect_garbage()
     phase_parity_small(dev)
     del points
+    freed["parity_small"] = collect_garbage()
     torch.cuda.empty_cache()
     srt = phase_sort(dev)
+    freed["sort"] = collect_garbage()
     torch.cuda.empty_cache()
     tokens_np = zipf_tokens(N_TOKENS, VOCAB, TOKEN_SEED)
     tokens = torch.from_numpy(tokens_np).to(dev)
     grp = phase_grep(dev, tokens_np, tokens)
+    freed["grep"] = collect_garbage()
     wc = phase_wordcount(dev, tokens_np, tokens)
+    freed["wordcount"] = collect_garbage()
     torch.cuda.empty_cache()
     srv = phase_serve(dev, tokens_np, tokens)
+    del tokens
+    freed["serve"] = collect_garbage()
+    torch.cuda.empty_cache()
+    enc = phase_enclave(dev)
+    freed["enclave"] = collect_garbage()
+    emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
     wire, big = cha["wire"], cha["64MiB"]
     by_path = {"kmeans": fit["launches"]["chacha20"], "sort": srt["launches"]["chacha20"],
-               "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"]}
+               "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"],
+               "enclave": enc["launches"]["chacha20"]}
     check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
@@ -1326,12 +1660,16 @@ def main(argv=None) -> int:
          "replaces_function": "kmeans_assign_tiles",
          "launches": fit["launches"]["kmeans_assign"],
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
+         "launches_by_path": {"kmeans": fit["launches"]["kmeans_assign"]},
          "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],
          "bound_tc_ms": km["bound_tc_ms"], "bound_tc_by": km["bound_tc_by"],
          "kernel_ms": km["kernel_ms"],
-         "library_ms": km["library_ms"], "shape": "8 x 524288 x 64 points, K=256"},
+         "library_ms": km["library_ms"], "shape": "8 x 524288 x 64 points, K=256",
+         "d128_k1024": {f: km["d128_k1024"][f] for f in (
+             "ms", "kernel_ms", "plain_ms", "plain_shards", "library_ms", "bound_ms",
+             "bound_by", "bound_tc_ms", "bound_tc_by", "bound_bytes_ms", "max_abs_err")}},
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the secure MapReduce framework in `repro`.
 
 The port mirrors `repro`'s subpackages (`crypto/`, `kernels/chacha20/`,
-`kernels/kmeans/`, `core/`) so the counterpart of each module is found
-under the same name; `core/` holds the engine, the iterative driver and the
-workloads (`kmeans`, `sort`, `grep`, `wordcount`). It imports `torch` and numpy only. Entry points run
+`kernels/kmeans/`, `core/`, `serve/`, `pubsub/`, `runtime/`) so the
+counterpart of each module is found under the same name; `core/` holds the
+engine, the iterative driver, the workloads (`kmeans`, `sort`, `grep`,
+`wordcount`), SecVM and the SecurePager; `runtime/` the simulated cluster. It imports `torch` and numpy only. Entry points run
 on the CUDA card unless the caller passes `device="cpu"`; on the CPU every
 hand-written kernel is replaced by its plain PyTorch version (`ref.py`).
 

@@ -77,8 +77,10 @@ capture -- and the job returns no result).
 
 from __future__ import annotations
 
+import threading
 import warnings
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -378,12 +380,30 @@ class _Statics:
     the carried state, the round id and the chunk's first round (int64
     scalars), the halt flag, the aux template, the device constants the
     rounds read (`pinned_constants`: block tables, exchange ids, kept alive
-    here for as long as the graphs replay) and the graphs' memory pool. A
-    graph reads and writes only these (and its own aux rows), so the
-    runners of one spec copy each input once per job and replay from one
-    pool. Like the graphs, they serve one thread at a time."""
+    here for as long as the graphs replay), the graphs' memory pool, and the
+    captured round of each chunk size (`captured`). A graph reads and writes
+    only these (and its own aux rows), so the runners of one spec copy each
+    input once per job and replay from one pool.
 
-    def __init__(self, src, inputs, carried, layout, device, round_offset: int):
+    Made empty by `ShapeBudget.use` and filled by the first call that holds
+    `lock` (`fill`, then the runner's warm-up round: `ready`). One thread at
+    a time: a call holds `lock` from the warm-up or `load` through its
+    capture and every replay to the clone of its result. Without it two
+    threads on one shape (two services on one `RunnerCache`, a fit beside a
+    served job) would overwrite each other's inputs, state and round id
+    between replays and hand back a wrong result with no error. `users`
+    counts the calls holding or waiting for the lock: statics in use are
+    never evicted (`ShapeBudget`)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.users = 0
+        self.ready = False
+        self.constants: dict = {}
+        self.aux = self.dropped = self.pool = None
+        self.captured: dict = {}  # n_rounds -> _Captured
+
+    def fill(self, src, inputs, carried, layout, device, round_offset: int) -> None:
         self.layout = layout
         self.inputs = tree_map(torch.clone, inputs)
         self._src = [(weakref.ref(t), t._version) for t in src]  # the copy's sources
@@ -394,8 +414,6 @@ class _Statics:
         self.r = torch.full((), int(round_offset), dtype=torch.int64, device=device)
         self.base = self.r.clone()
         self.halt = torch.zeros((), dtype=torch.bool, device=device)
-        self.constants: dict = {}
-        self.aux = self.dropped = self.pool = None
 
     def _holds(self, src) -> bool:
         """Whether the input copy is of these tensors, unmodified since."""
@@ -415,6 +433,94 @@ class _Statics:
             dst.copy_(x)
 
 
+class _Store(dict):
+    """A job's graph runners' statics by shape key, shared by the runners of
+    its chunk sizes; `budget` is the `ShapeBudget` that counts them."""
+
+    __slots__ = ("budget", "__weakref__")
+
+    def __init__(self, budget: "ShapeBudget"):
+        super().__init__()
+        self.budget = budget
+
+
+class ShapeBudget:
+    """How many shapes' statics (each with its captured rounds) the graph
+    runners of one `repro_torch.serve.RunnerCache` keep on the card: at most
+    `limit` (the cache's `max_resident`; None: no bound), the least recently
+    used shape first out, never one that a call is using. The cache hands
+    its budget to every graph runner it builds (`keep_shapes_within`); a
+    runner made alone counts its shapes in an unbounded budget of its own.
+
+    The budget refers to the stores weakly: once a store's runners are all
+    dropped (evicted from the cache, or the cache cleared) its statics are
+    freed at once and leave the count. Its lock guards the stores' dicts and
+    the statics' `users`."""
+
+    def __init__(self, limit: int | None = None):
+        self.limit = limit
+        self.lock = threading.Lock()
+        self._lru: OrderedDict = OrderedDict()  # (id(store), key) -> (weakref(store), key)
+        self.evictions = 0
+
+    def __len__(self):
+        with self.lock:
+            self._prune()
+            return len(self._lru)
+
+    def use(self, store: _Store, key) -> _Statics:
+        """The statics of `key` in `store`, marked in use and most recently
+        used; on a miss new empty ones, which the caller fills under their
+        lock (the warm-up runs outside the budget's lock). The caller must
+        `release` them."""
+        with self.lock:
+            st = store.get(key)
+            if st is None:
+                st = store[key] = _Statics()
+            st.users += 1
+            self._lru[(id(store), key)] = (weakref.ref(store), key)
+            self._lru.move_to_end((id(store), key))
+            self._shrink()
+            return st
+
+    def release(self, store: _Store, key, st: _Statics) -> None:
+        """End a call's use of `st`; statics whose warm-up raised and that no
+        other call holds are dropped (the runner keeps nothing of the key)."""
+        with self.lock:
+            st.users -= 1
+            if not st.ready and st.users == 0 and store.get(key) is st:
+                del store[key]
+                self._lru.pop((id(store), key), None)
+            self._shrink()
+
+    def _prune(self) -> None:
+        """Forget entries whose store was dropped."""
+        for lru_key, (ref, key) in list(self._lru.items()):
+            store = ref()
+            if store is None or key not in store:
+                del self._lru[lru_key]
+
+    def _shrink(self) -> None:
+        """Evict least recently used statics not in use until within the limit."""
+        self._prune()
+        if self.limit is None:
+            return
+        for lru_key, (ref, key) in list(self._lru.items()):
+            if len(self._lru) <= self.limit:
+                return
+            store = ref()
+            if store is None or key not in store:
+                del self._lru[lru_key]
+            elif store[key].users == 0:
+                del store[key]
+                del self._lru[lru_key]
+                self.evictions += 1
+
+
+# torch.cuda.graph captures on one shared side stream: one capture at a time
+_CAPTURE_LOCK = threading.Lock()
+
+
 @dataclass
 class _Captured:
     """One captured round of a runner for one shape key."""
@@ -424,32 +530,35 @@ class _Captured:
     dropped: Any  # (n_rounds,)
     records: list  # the shuffle's wire records made at capture
     pool_bytes: int  # bytes its capture added to the (shared) pool
+    trace_info: dict  # the resolved capacity at capture
 
 
 class _GraphRunner:
     """A CUDA graph of ONE round, replayed up to `n_rounds` times per chunk.
 
     A graph is tied to the shapes of the inputs and state it was captured
-    on: the runner keeps one per shape key (`_Captured`), each reading and
-    writing the static buffers of that key (`_Statics`: inputs, carried
-    state, round id, halt flag, device constants), which the runners of the
-    same job at other chunk sizes share (`share_with`), plus aux and dropped
-    rows of its own. Before the first capture of a key one eager warm-up
-    round runs on new statics, at the call's own first round: it builds the
-    kernels, fills and pins the device constants, fixes the aux shapes and
-    runs the halt guard (a sharded leaf touched by `halt_fn` raises its
-    ValueError there, and the runner keeps nothing of the key). Per round
-    the host writes the round id into a device scalar with `fill_` (a launch
-    carrying the value, not a copy from host memory that a later write could
-    race) and replays; inside the graph the keystream's u32 round bits and
-    the aux row (the round id less the chunk's first, written once per
-    chunk) come from that scalar, and the callbacks get it as `r`. After
-    each replay the host reads the halt flag: one synchronising call per
-    executed round, and none in a chunk without `halt_fn`. A call copies the
-    caller's state, and its inputs when they are not the last call's, into
-    the static buffers, and returns fresh tensors: another job's chunk may
-    replay this graph next. The shuffle's wire record made at capture is
-    re-emitted for every executed round.
+    on: per shape key the runner's store holds one `_Statics` (inputs,
+    carried state, round id, halt flag, device constants), which the runners
+    of the same job at other chunk sizes share (`share_with`), and in it one
+    `_Captured` per chunk size (the graph, its aux and dropped rows). The
+    store's `ShapeBudget` (the runner cache's) bounds the shapes kept, least
+    recently used out first. Before the first capture of a key one eager
+    warm-up round runs on new statics, at the call's own first round: it
+    builds the kernels, fills and pins the device constants, fixes the aux
+    shapes and runs the halt guard (a sharded leaf touched by `halt_fn`
+    raises its ValueError there, and the runner keeps nothing of the key).
+    Per round the host writes the round id into a device scalar with `fill_`
+    (a launch carrying the value, not a copy from host memory that a later
+    write could race) and replays; inside the graph the keystream's u32
+    round bits and the aux row (the round id less the chunk's first, written
+    once per chunk) come from that scalar, and the callbacks get it as `r`.
+    After each replay the host reads the halt flag: one synchronising call
+    per executed round, and none in a chunk without `halt_fn`. A call holds
+    the statics' lock while it warms them up or copies the caller's state,
+    and its inputs when they are not the last call's, into the static
+    buffers, replays, and clones fresh tensors out: another job's chunk, on
+    this thread or another, may replay this graph next. The shuffle's wire
+    record made at capture is re-emitted for every executed round.
     """
 
     def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None,
@@ -457,19 +566,35 @@ class _GraphRunner:
         self.spec, self.mesh, self.secure = spec, mesh, secure
         self.n_rounds, self.coalesce = n_rounds, coalesce
         self.trace_info: dict = {}
-        # shape key -> _Statics, shared by a job's runners
-        self._statics: dict = {} if share_with is None else share_with._statics
-        self._captured: dict = {}  # shape key -> _Captured
+        # shape key -> _Statics, shared by a job's runners and counted by a budget
+        self._statics = _Store(ShapeBudget()) if share_with is None else share_with._statics
+
+    def keep_shapes_within(self, budget: ShapeBudget) -> None:
+        """Count this runner's shapes (and its job's other runners') in
+        `budget`: a runner cache calls this on every runner it builds."""
+        self._statics.budget = budget
+
+    def drop_captures(self) -> None:
+        """Free this runner's captures (its runner cache evicted it); its
+        job's statics stay while another runner of the job shares them."""
+        with self._statics.budget.lock:
+            for st in self._statics.values():
+                st.captured.pop(self.n_rounds, None)
+
+    def _mine(self) -> list:
+        with self._statics.budget.lock:
+            return [st.captured[self.n_rounds] for st in self._statics.values()
+                    if self.n_rounds in st.captured]
 
     @property
     def captures(self) -> int:
-        """CUDA graphs this runner captured (one per shape key)."""
-        return len(self._captured)
+        """CUDA graphs of this chunk size held for the shapes kept."""
+        return len(self._mine())
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes its captures added to the shared memory pools."""
-        return sum(c.pool_bytes for c in self._captured.values())
+        """Bytes those captures added to the shared memory pools."""
+        return sum(c.pool_bytes for c in self._mine())
 
     def _body(self, st: _Statics):
         """One round on the static buffers: (state, aux, dropped, halt)."""
@@ -485,22 +610,21 @@ class _GraphRunner:
             halt = halt.to(torch.bool).reshape(())
         return state, aux, dropped, halt
 
-    def _statics_for(self, key, src, inputs, carried, layout, round_offset: int) -> _Statics:
-        st = self._statics.get(key)
-        if st is None:
-            st = _Statics(src, inputs, carried, layout, self.mesh.device, round_offset)
-            with wire_accounting.isolated(), pinned_constants(st.constants):
-                _, aux, dropped, _ = self._body(st)  # the warm-up: no round of the job
-            st.aux, st.dropped = aux, dropped  # templates of the per-round rows
-            self._statics[key] = st  # only once the warm-up went through
-        return st
+    def _warm(self, st: _Statics, src, inputs, carried, layout, round_offset: int) -> None:
+        """Fill new statics and run the warm-up round on them."""
+        st.fill(src, inputs, carried, layout, self.mesh.device, round_offset)
+        with wire_accounting.isolated(), pinned_constants(st.constants):
+            _, aux, dropped, _ = self._body(st)  # the warm-up: no round of the job
+        st.aux, st.dropped = aux, dropped  # templates of the per-round rows
+        st.ready = True
 
     def _capture(self, st: _Statics) -> _Captured:
         aux_rows = tree_map(lambda a: a.new_zeros((self.n_rounds,) + tuple(a.shape)), st.aux)
         drop_rows = st.dropped.new_zeros((self.n_rounds,))
         before = 0 if st.pool is None else _pool_bytes(st.pool)
         graph = torch.cuda.CUDAGraph()
-        with wire_accounting.isolated() as records, pinned_constants(st.constants), \
+        with _CAPTURE_LOCK, wire_accounting.isolated() as records, \
+                pinned_constants(st.constants), \
                 torch.cuda.graph(graph, pool=st.pool, capture_error_mode="thread_local"):
             state, aux, dropped, halt = self._body(st)
             row = (st.r - st.base).reshape(1)
@@ -513,7 +637,7 @@ class _GraphRunner:
                 st.halt.copy_(halt)
         st.pool = graph.pool()
         return _Captured(graph, aux_rows, drop_rows, list(records),
-                         _pool_bytes(st.pool) - before)
+                         _pool_bytes(st.pool) - before, dict(self.trace_info))
 
     def __call__(self, inputs, state, round_offset: int = 0):
         spec, mesh = self.spec, self.mesh
@@ -521,24 +645,34 @@ class _GraphRunner:
         src = tree_flatten(inputs)[0]
         inputs, carried, layout = _place(spec, mesh, inputs, state)
         key = _shape_key(inputs, carried)
-        st = self._statics_for(key, src, inputs, carried, layout, int(round_offset))
-        cap = self._captured.get(key)
-        if cap is None:
-            cap = self._captured[key] = self._capture(st)
-        st.load(src, inputs, carried)
-        st.base.fill_(int(round_offset))
-        n_exec, halted = 0, False
-        for i in range(self.n_rounds):
-            st.r.fill_(int(round_offset) + i)
-            cap.graph.replay()
-            n_exec += 1
-            if spec.halt_fn is not None and bool(st.halt):
-                halted = True
-                break
+        store = self._statics
+        budget = store.budget
+        st = budget.use(store, key)
+        try:
+            with st.lock:
+                if not st.ready:
+                    self._warm(st, src, inputs, carried, layout, int(round_offset))
+                cap = st.captured.get(self.n_rounds)
+                if cap is None:
+                    cap = st.captured[self.n_rounds] = self._capture(st)
+                self.trace_info.update(cap.trace_info)
+                st.load(src, inputs, carried)
+                st.base.fill_(int(round_offset))
+                n_exec, halted = 0, False
+                for i in range(self.n_rounds):
+                    st.r.fill_(int(round_offset) + i)
+                    cap.graph.replay()
+                    n_exec += 1
+                    if spec.halt_fn is not None and bool(st.halt):
+                        halted = True
+                        break
+                out = layout.gather(tree_map(torch.clone, st.state), mesh)
+                aux = tree_map(lambda a: _zero_past(a, n_exec), cap.aux)
+                dropped = _zero_past(cap.dropped, n_exec)
+        finally:
+            budget.release(store, key, st)
         wire_accounting.emit(cap.records * n_exec)
-        out = layout.gather(tree_map(torch.clone, st.state), mesh)
-        aux = tree_map(lambda a: _zero_past(a, n_exec), cap.aux)
-        return out, aux, _zero_past(cap.dropped, n_exec), n_exec, halted
+        return out, aux, dropped, n_exec, halted
 
 
 def _zero_past(rows, n_exec: int):
@@ -566,7 +700,9 @@ def make_iterative_runner(spec: IterativeSpec, mesh, secure=None, n_rounds: int 
     The mesh's device chooses, so the cache contract runs the same on both.
     `share_with`, a runner built from the same spec, mesh, secure and knobs
     for another chunk size, lends its static buffers and memory pool
-    (`_Statics`).
+    (`_Statics`). A graph runner keeps the statics of every shape it is
+    called on until its runner cache bounds them (`keep_shapes_within`,
+    which `repro_torch.serve.RunnerCache` calls on the runners it builds).
     """
     secure = _with_knobs(secure, chacha_impl, coalesce)
     n = spec.n_rounds if n_rounds is None else int(n_rounds)
@@ -663,8 +799,9 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     `spec.n_rounds` is ignored: chunk sizes are chosen here.
 
     `runners`: a runner cache reused across calls -- a plain dict (chunk size
-    -> runner) or any object with `get_or_build(n_rounds, build)` (the
-    service's keyed `RunnerCache` views). The caller owns its validity: it
+    -> runner) or any object with `get_or_build(n_rounds, build)` (a
+    `repro_torch.serve.RunnerCache` or one of its keyed views, which bound
+    the shapes their runners keep). The caller owns its validity: it
     must hold runners built from the SAME spec, mesh, secure and knobs. With
     None, every chunk runs the eager loop: a graph replayed once would pay
     its capture and save nothing. `job_tag` wraps each chunk in

@@ -18,12 +18,12 @@ below diag/1000 of the data's bounding box; the rule is the job's
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.core.driver import IterativeSpec, P, run_until
+from repro_torch.core.driver import IterativeSpec, P, resolve_chunk_growth, run_until
 from repro_torch.core.engine import identity_hash
 from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
 from repro_torch.kernels.kmeans.ops import kmeans_assign
@@ -201,9 +201,10 @@ class KMeansRunnerCache:
 
     Holds the iterative spec (halt threshold baked in) and the per-chunk-size
     runners that `run_until` fills lazily (`core/driver.py`: a CUDA graph of
-    one round on the card, the eager chunk on the CPU). `runners` is a plain
-    dict unless `make_kmeans_runner(cache=...)` put a keyed view of a
-    `repro_torch.serve.RunnerCache` there, shared with the job service.
+    one round on the card, the eager chunk on the CPU). `runners` is a
+    small `repro_torch.serve.RunnerCache` of the fit's own (`_fit_runners`)
+    unless `make_kmeans_runner(cache=...)` put a keyed view of a shared one
+    there, shared with the job service.
     """
 
     spec: IterativeSpec
@@ -214,7 +215,7 @@ class KMeansRunnerCache:
     threshold: float | None
     min_chunk: int = 1
     coalesce: bool | None = None
-    runners: object = field(default_factory=dict)
+    runners: object = None
 
 
 def make_kmeans_runner(mesh, k: int, *, secure=None, impl: str = "auto",
@@ -229,18 +230,37 @@ def make_kmeans_runner(mesh, k: int, *, secure=None, impl: str = "auto",
     `repro_torch.serve.RunnerCache`) backs the runners with that keyed cache
     instead of a private dict, so fits and the job service share captures.
     A runner captures one graph per shape of points, so one cache serves
-    fits of any size; each size keeps its own copy of the points on the card.
+    fits of any size; each size kept holds its own copy of the points on the
+    card, and the cache's cap bounds the sizes kept, the least recently used
+    out first (without `cache`, the fit's own cache of `_fit_runners`).
     """
     spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
     runner = KMeansRunnerCache(spec=spec, mesh=mesh, secure=secure, chacha_impl=chacha_impl,
                                max_chunk=max(1, rounds_per_dispatch), threshold=threshold,
                                min_chunk=max(1, min_chunk), coalesce=coalesce)
-    if cache is not None:
+    if cache is None:
+        runner.runners = _fit_runners(runner.min_chunk, runner.max_chunk)
+    else:
         runner.runners = cache.view(
             spec_id=("kmeans-fit", k, mesh.n_shards, impl,
                      None if threshold is None else float(threshold)),
             mesh=mesh, secure=secure, chacha_impl=chacha_impl, coalesce=coalesce)
     return runner
+
+
+def _fit_runners(min_chunk: int, max_chunk: int):
+    """A fit runner's own `RunnerCache`: room for one runner per chunk size
+    of `run_until`'s ladder and one more for a chunk cut short by max_iter,
+    so a fit replays without evicting its own runners; the same cap bounds
+    the sizes of points kept on the card."""
+    from repro_torch.serve.service import RunnerCache  # serve imports this module
+
+    chunk = min(min_chunk, max_chunk)
+    sizes = {chunk}
+    while chunk < max_chunk:
+        chunk = min(chunk * resolve_chunk_growth(), max_chunk)
+        sizes.add(chunk)
+    return RunnerCache(max_resident=len(sizes) + 1)
 
 
 def kmeans_fit(points, k: int, mesh, *, secure=None, impl: str = "auto",

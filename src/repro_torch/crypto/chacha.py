@@ -112,6 +112,17 @@ def chacha20_block_from_state(init: list) -> torch.Tensor:
     return torch.stack([(x + x0) & MASK32 for x, x0 in zip(xs, init)], dim=-1)
 
 
+def _words_of(x, device) -> list:
+    """u32 words as int64 (1,) tensors on `device`. Host words become
+    scalar multiples of a device one (a fill, not a host-to-device copy, so
+    a crypt on the card with host key material never synchronises)."""
+    if isinstance(x, torch.Tensor):
+        t = as_u32(x, device).reshape(-1)
+        return [t[i:i + 1] for i in range(t.shape[0])]
+    one = torch.ones((1,), dtype=torch.int64, device=device)
+    return [one * int(w) for w in np.asarray(x).astype(np.uint64).reshape(-1) & MASK32]
+
+
 def chacha20_block_words(key_words, counters, nonce_words, device=None) -> torch.Tensor:
     """Vectorized ChaCha20 block function.
 
@@ -127,23 +138,26 @@ def chacha20_block_words(key_words, counters, nonce_words, device=None) -> torch
     if device is None and isinstance(counters, torch.Tensor):
         device = counters.device
     device = resolve_device(device)
-    kw = as_u32(key_words, device)
-    nw = as_u32(nonce_words, device)
     ctr = as_u32(counters, device)
     one = torch.ones((1,), dtype=torch.int64, device=device)
     init = [one * w for w in CONSTANT_WORDS]
-    init += [kw[i:i + 1] for i in range(8)]
+    init += _words_of(key_words, device)
     init.append(ctr)
-    init += [nw[i:i + 1] for i in range(3)]
+    init += _words_of(nonce_words, device)
     return to_word_bits(chacha20_block_from_state(init))
 
 
 def chacha20_keystream_words(key_words, nonce_words, counter0, n_words: int,
                              device=None) -> torch.Tensor:
-    """Keystream of `n_words` words starting at block counter `counter0`."""
+    """Keystream of `n_words` words starting at block counter `counter0` (a
+    host int or a 0-d tensor, never read back to the host)."""
     device = resolve_device(device)
     n_blocks = -(-n_words // 16)
-    counters = (as_u32(counter0, device) + torch.arange(n_blocks, device=device)) & MASK32
+    blocks = torch.arange(n_blocks, device=device)
+    if isinstance(counter0, torch.Tensor):
+        counters = (as_u32(counter0, device) + blocks) & MASK32
+    else:
+        counters = (blocks + (int(counter0) & MASK32)) & MASK32
     ks = chacha20_block_words(key_words, counters, nonce_words, device=device)
     return ks.reshape(-1)[:n_words]
 

@@ -75,7 +75,18 @@ def _from_words(words: torch.Tensor, shape, dtype, pad: int, lead: int = 0):
 
 
 def encrypt_array(x: torch.Tensor, key_words, nonce_words, counter0) -> torch.Tensor:
-    """XOR `x` with the ChaCha20 keystream; same shape and dtype back."""
+    """XOR `x` with the ChaCha20 keystream; same shape and dtype back.
+
+    A CUDA tensor is XORed by the hand-written ChaCha20 kernel in one
+    launch: key, nonce and a host `counter0` pass by value, a 0-d device
+    `counter0` by device pointer (never read on the host). A CPU tensor runs
+    the plain PyTorch ARX; both give the same bits.
+    """
+    if x.is_cuda:
+        # imported here: the kernel's ops module imports this one
+        from repro_torch.kernels.chacha20.ops import ctr_crypt_array
+
+        return ctr_crypt_array(x, key_words, nonce_words, counter0)
     words, pad = _to_words(x)
     ks = chacha20_keystream_words(key_words, nonce_words, counter0, words.shape[0],
                                   device=x.device)
@@ -90,14 +101,22 @@ def encrypt_tree(tree: Any, key_words, nonce_words, counter0=0):
 
     The same call decrypts (XOR). Counter ranges are assigned in leaf order,
     so both sides derive identical layouts from the structure alone.
+    `counter0` may be a host int or a 0-d device tensor (a freshness counter
+    kept on the card): it is never read on the host, and the next counter
+    comes back in the same form.
     """
     leaves, treedef = tree_flatten(tree)
     out = []
-    ctr = int(counter0)
+    ctr = counter0
     for leaf in leaves:
         out.append(encrypt_array(leaf, key_words, nonce_words, ctr))
-        ctr += -(-words_for(leaf.shape, leaf.dtype) // 16)
+        ctr = ctr + -(-words_for(leaf.shape, leaf.dtype) // 16)
     return tree_unflatten(treedef, out), ctr
 
 
 decrypt_tree = encrypt_tree
+
+
+def tree_counter_blocks(tree: Any) -> int:
+    """Total counter blocks a pytree consumes (for counter-space bookkeeping)."""
+    return sum(-(-words_for(leaf.shape, leaf.dtype) // 16) for leaf in tree_flatten(tree)[0])

@@ -9,7 +9,8 @@ points use the table {j, 1, 16j, min(16, n - 16j)}, so a partial last block
 is cut in the kernel and nothing is padded; the coalesced shuffle builds its
 table once per wire layout (`repro_torch.core.shuffle`).
 
-Key, nonce and counter0 are host values, passed to the kernel by value. The
+Key, nonce and counter0 are host values, passed to the kernel by value (a
+device counter0 enters `ctr_crypt_array` as the row's counter start). The
 entry points that take a 16-word `state0` read it on the host: a state0 on
 the card costs one copy back (they are not on the shuffle's path).
 
@@ -95,14 +96,18 @@ def chacha20_xor_words(words, state0, *, impl: str = "auto"):
     return _xor_flat(words, key, nonce, counter0, impl)
 
 
-def _xor_flat(words, key, nonce, counter0, impl):
+def _xor_flat(words, key, nonce, counter0, impl, counter_dev=None):
+    """One row, block j at counter0 + j; `counter_dev` (a device counter)
+    enters as the row's counter start, which the row table adds to every
+    block (ctr_rowmul 1), so it is never read on the host."""
     n = words.shape[0]
     if n == 0:
         return words
     dev = words.device
     zero = device_constant(_zero_id, dev)
-    return chacha20_xor_packed(words.reshape(1, n), device_constant(row_table, n, dev), key, nonce, counter0,
-                               zero, zero, impl=impl).reshape(n)
+    rows = zero if counter_dev is None else counter_dev
+    return chacha20_xor_packed(words.reshape(1, n), device_constant(row_table, n, dev), key,
+                               nonce, counter0, zero, rows, impl=impl).reshape(n)
 
 
 def chacha20_xor_rows(words, state0, nonce_ids, ctr_starts, *, impl: str = "auto",
@@ -142,7 +147,15 @@ def chacha20_xor_rows_coalesced(words, state0, nonce_ids, ctr_rows, ctr_base,
 
 
 def ctr_crypt_array(x, key_words, nonce_words, counter0=0, *, impl: str = "auto"):
-    """Encrypt/decrypt an arbitrary-dtype tensor through the kernel (XOR stream)."""
+    """Encrypt/decrypt an arbitrary-dtype tensor through the kernel (XOR stream).
+
+    `counter0` is a host int, or a 0-d tensor (a counter kept on the card)
+    that reaches the kernel from device memory: one launch either way.
+    """
     words, pad = _ctr._to_words(x)
-    out = _xor_flat(words, host_u32(key_words), host_u32(nonce_words), int(counter0), impl)
+    key, nonce = host_u32(key_words), host_u32(nonce_words)
+    if isinstance(counter0, torch.Tensor):
+        out = _xor_flat(words, key, nonce, 0, impl, ids_on(counter0.reshape(1), words.device))
+    else:
+        out = _xor_flat(words, key, nonce, int(counter0), impl)
     return _ctr._from_words(out, x.shape, x.dtype, pad)

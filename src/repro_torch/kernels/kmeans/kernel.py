@@ -6,7 +6,10 @@ one centre table) with three kernels issued by one C entry point: the
 assignments on the tensor cores (3xTF32), per-CTA partials in point order,
 then a fixed-order reduction over CTAs. It counts as one launch in
 `launches`. Ragged tiles are masked inside the kernels, so no point is
-padded or copied.
+padded or copied. Any K >= 1 and D >= 1 is taken: D > 64 runs the assign
+kernel that walks D in chunks of 64 columns, and a (K, D) table of partial
+sums too large for one CTA's shared memory is accumulated in blocks of
+centres x columns.
 """
 
 from __future__ import annotations
@@ -21,26 +24,27 @@ launches = 0
 
 ASSIGN_TILE = 128  # points an assign CTA takes per step: two warpgroups x 64 (csrc/kmeans.cu)
 ACC_TILE = 256  # points per tile of the accumulate kernel (C_TILE)
-DMAX = 64
-SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+DCHUNK = 64  # above this D the assign kernel walks D in chunks of this many columns
+CBLOCK = 128  # centres per block of that kernel's table (one wgmma's N)
+
+
+def dchunk_scratch(k: int, d: int) -> int:
+    """Floats of scratch the D > 64 assign kernel takes: |c|^2 per block of
+    128 centres, and each block's hi/lo split per chunk of 64 columns."""
+    cblocks = -(-k // CBLOCK)
+    return cblocks * CBLOCK + cblocks * -(-d // DCHUNK) * 2 * DCHUNK * CBLOCK
 
 
 def admits(k: int, d: int) -> bool:
-    """The (K, D) the entry point takes: 1 <= D <= 64 and
-    K * (16 * ceil(D / 4) + 4 * D + 8) + 6144 <= 232,448 (K <= 435 at D = 64).
-
-    This range is the entry point's contract. Inside it both kernels fit one
-    CTA's shared memory; the assign kernel streams the centre table in
-    chunks where the whole table does not fit beside its point ring.
-    """
-    return 1 <= d <= DMAX and k >= 1 and \
-        k * (16 * -(-d // 4) + 4 * d + 8) + 6144 <= SMEM_LIMIT
+    """The (K, D) the entry point takes: every K >= 1 and D >= 1 (device
+    memory permitting: the partial sums take S x CTAs x K x D floats)."""
+    return k >= 1 and d >= 1
 
 
 def _lib():
     lib = _build.load("kmeans")
     fn = lib.kmeans_assign_accumulate
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -76,7 +80,7 @@ def kmeans_assign_cuda(points, centers, weights):
     """assign (S, n) int32, sums (S, K, D) f32, counts (S, K) f32 in one launch.
 
     points (S, n, D) f32, centers (K, D) f32, weights (S, n) f32, all
-    contiguous CUDA tensors on one device; 1 <= D <= 64.
+    contiguous CUDA tensors on one device; any K >= 1, D >= 1.
     """
     global launches
     s, n, d = points.shape
@@ -86,11 +90,8 @@ def kmeans_assign_cuda(points, centers, weights):
     _check(weights, "weights", (s, n), torch.float32)
     if centers.device != points.device or weights.device != points.device:
         raise ValueError("points, centers and weights must be on the same device")
-    if not 1 <= d <= DMAX:
-        raise ValueError(f"the k-means kernel takes 1 <= D <= {DMAX}, got D={d}")
     if not admits(k, d):
-        raise ValueError(f"the k-means kernel does not take K={k} at D={d} (K <= 435 at D=64; "
-                         "see kernel.admits)")
+        raise ValueError(f"the k-means kernel needs K >= 1 and D >= 1, got K={k}, D={d}")
     dev = points.device
     assign = torch.empty((s, n), dtype=torch.int32, device=dev)
     sums = torch.empty((s, k, d), dtype=torch.float32, device=dev)
@@ -101,11 +102,14 @@ def kmeans_assign_cuda(points, centers, weights):
         s, n, torch.cuda.get_device_properties(dev).multi_processor_count)
     part_sums = torch.empty((s, n_ctas, k, d), dtype=torch.float32, device=dev)
     part_counts = torch.empty((s, n_ctas, k), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((dchunk_scratch(k, d),), dtype=torch.float32, device=dev)
+               if d > DCHUNK else None)
     fn = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(points.data_ptr(), centers.data_ptr(), weights.data_ptr(), assign.data_ptr(),
              part_sums.data_ptr(), part_counts.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-             s, n, d, k, assign_ctas, n_ctas, per_cta, stream)
+             None if scratch is None else scratch.data_ptr(), s, n, d, k, assign_ctas, n_ctas,
+             per_cta, stream)
     _build.check(err, "kmeans_assign_accumulate launch")
     launches += 1
     return assign, sums, counts

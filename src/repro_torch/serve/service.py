@@ -13,7 +13,9 @@ what a job needs to run its rounds from cached CUDA graphs:
     chunk size. It serves `run_until(runners=...)` through the driver's
     `get_or_build(n_rounds, build)` contract, counts hits, misses and
     evictions, bounds residency with an LRU cap, and reports the graphs its
-    resident runners captured (`captures`) and their private pools' bytes.
+    runners captured (`captures`) and their pools' bytes. The same cap
+    bounds the input shapes whose static buffers and captures the graph
+    runners keep on the card (`driver.ShapeBudget`).
 
   * GEOMETRIC SIZE BUCKETS -- `bucket_for` rounds every job's input length up
     a fixed ladder (x growth, default 2, aligned to the mesh), so a job of
@@ -38,6 +40,13 @@ Differences from the reference: the growth factor and the residency cap are
 explicit arguments or defaults (no environment variable, no calibrated cost
 model yet); the cache reports graph captures where the reference counts XLA
 compiles.
+
+Keystream reuse. A fresh service starts its round bases at 0, as the
+reference's does, so two services (or two processes) given the same
+`SecureShuffleConfig` key draw the same keystream ranges: a two-time pad
+between their jobs. Give each session its own key, as the reference does
+with `KeyHierarchy` (`repro_torch.crypto.keys.KeyHierarchy.new_session`,
+then `repro_torch.convert.secure_config` on the session's key).
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.driver import resolve_state_mode, run_until_chunks
+from repro_torch.core.driver import ShapeBudget, resolve_state_mode, run_until_chunks
 from repro_torch.core.grep import make_grep_spec
 from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
 from repro_torch.core.shuffle import SecureShuffleConfig, resolve_coalesce
@@ -152,10 +161,18 @@ class RunnerCache:
     `max_resident` bounds residency (least recently used out first); hits,
     misses and evictions are counted, and `captures()` sums the CUDA graphs
     the resident runners captured: a warm submit leaves it unchanged.
+    `max_resident` also bounds the shapes of inputs and state whose static
+    buffers (`_Statics`, with their captures) the graph runners keep on the
+    card, counted over the whole cache (`shape_budget`, handed to every
+    runner built here): the least recently used shape goes first, never one
+    that a thread is replaying. An evicted runner's captures are freed at
+    once, and so are its job's statics once no resident runner shares them
+    (the budget refers to them weakly); `clear()` frees them all.
     """
 
     def __init__(self, max_resident="auto"):
         self.max_resident = resolve_max_resident(max_resident)
+        self.shape_budget = ShapeBudget(self.max_resident)
         self._runners: OrderedDict = OrderedDict()
         self._lock = threading.RLock()
         self.hits = 0
@@ -185,9 +202,12 @@ class RunnerCache:
                 return runner
             self.misses += 1
             runner = self._runners[key] = build()
+            bound = getattr(runner, "keep_shapes_within", None)  # a graph runner
+            if bound is not None:
+                bound(self.shape_budget)
             if self.max_resident is not None:
                 while len(self._runners) > self.max_resident:
-                    self._runners.popitem(last=False)
+                    _drop(self._runners.popitem(last=False)[1])
                     self.evictions += 1
             return runner
 
@@ -208,18 +228,29 @@ class RunnerCache:
         return sum(r.captures for r in self._resident())
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the resident runners' graph pools."""
+        """Device bytes those captures added to the graph pools."""
         return sum(r.pool_bytes for r in self._resident())
 
     def stats(self) -> dict:
         with self._lock:
             return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
                     "resident": len(self._runners), "max_resident": self.max_resident,
+                    "shapes": len(self.shape_budget),
+                    "shape_evictions": self.shape_budget.evictions,
                     "captures": self.captures(), "pool_bytes": self.pool_bytes()}
 
     def clear(self):
         with self._lock:
+            for runner in self._runners.values():
+                _drop(runner)
             self._runners.clear()
+
+
+def _drop(runner) -> None:
+    """Free what an evicted runner holds on the card (a graph runner's captures)."""
+    drop = getattr(runner, "drop_captures", None)
+    if drop is not None:
+        drop()
 
 
 _default_cache: RunnerCache | None = None
@@ -351,8 +382,9 @@ class SecureJobService:
     job gets a disjoint global-round range (a monotone `round_base` advanced
     by its `max_rounds`), so concurrent secure jobs never reuse keystream.
     Jobs submitted in the same order give bit-identical results at any
-    concurrency, serial included. Callers should leave the card to the
-    scheduler thread while jobs run: it captures graphs at a cold submit.
+    concurrency, serial included. Services may share one `RunnerCache`: a
+    graph runner's statics serve one thread at a time (`_Statics.lock`),
+    and captures are taken one at a time.
     """
 
     def __init__(self, mesh, *, secure: SecureShuffleConfig | None = None,

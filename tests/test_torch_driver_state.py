@@ -14,6 +14,10 @@ to the reference's own test of it, which fails on this tree.
 """
 
 import dataclasses
+import gc
+import sys
+import time
+import weakref
 
 import numpy as np
 import pytest
@@ -467,3 +471,255 @@ def test_halt_guard_raises_through_a_runner_cache():
         with pytest.raises(ValueError, match=r"SHARDED carried-state leaf state\['sorted'\]"):
             tdrv.run_until(spec, {"v": v}, init, mesh, secure=_cfg(), max_rounds=3,
                            runners=runners)
+
+
+# --- graph runners on the CPU: the statics' lock and the shape budget -----------------
+#
+# A `_GraphRunner` needs a card to capture. Here its capture is replaced by a
+# stand-in whose replay runs the captured round eagerly on the statics and
+# writes what the graph writes (state, the aux and dropped rows, the halt
+# flag), pausing between the round's reads and its writes so that another
+# thread can interleave. Everything else of the runner -- statics, lock,
+# load, the replay loop, the shape budget -- is the runner's own.
+
+
+class _EagerGraph:
+    def __init__(self, runner, st, aux_rows, drop_rows, pause):
+        # weak, as a captured graph holds neither its runner nor its statics
+        self.runner, self.st, self.pause = weakref.proxy(runner), weakref.proxy(st), pause
+        self.aux_rows, self.drop_rows = aux_rows, drop_rows
+
+    def replay(self):
+        st = self.st
+        with tdrv.wire_accounting.isolated():
+            state, aux, dropped, halt = self.runner._body(st)
+        time.sleep(self.pause)
+        row = (st.r - st.base).reshape(1)
+        for dst, src in zip(tdrv.tree_flatten(st.state)[0], tdrv.tree_flatten(state)[0]):
+            dst.copy_(src)
+        for dst, src in zip(tdrv.tree_flatten(self.aux_rows)[0], tdrv.tree_flatten(aux)[0]):
+            dst.index_copy_(0, row, src.unsqueeze(0))
+        self.drop_rows.index_copy_(0, row, dropped.reshape(1))
+        if halt is not None:
+            st.halt.copy_(halt)
+
+
+@pytest.fixture
+def cpu_graph_runners(monkeypatch):
+    """`make_iterative_runner` builds `_GraphRunner`s on a CPU mesh, whose
+    captures replay eagerly (`_EagerGraph`, 2 ms between reads and writes)."""
+    def capture(self, st):
+        aux_rows = tdrv.tree_map(lambda a: a.new_zeros((self.n_rounds,) + tuple(a.shape)),
+                                 st.aux)
+        drop_rows = st.dropped.new_zeros((self.n_rounds,))
+        return tdrv._Captured(_EagerGraph(self, st, aux_rows, drop_rows, 0.002), aux_rows,
+                              drop_rows, [], 0, dict(self.trace_info))
+
+    def make(spec, mesh, secure=None, n_rounds=None, *, chacha_impl=None, coalesce=None,
+             share_with=None):
+        secure = tdrv._with_knobs(secure, chacha_impl, coalesce)
+        n = spec.n_rounds if n_rounds is None else int(n_rounds)
+        return tdrv._GraphRunner(spec, mesh, secure, n, coalesce, share_with)
+
+    monkeypatch.setattr(tdrv._GraphRunner, "_capture", capture)
+    monkeypatch.setattr(tdrv, "make_iterative_runner", make)
+    return make
+
+
+def _kmeans_case(mesh, n, seed, k=3, d=2):
+    from repro_torch.core.kmeans import generate_points
+
+    pts, _ = generate_points(n, k, d=d, seed=seed)
+    p = torch.from_numpy(pts)
+    return {"p": p, "w": torch.ones(n)}, p[:k].clone()
+
+
+def test_graph_runner_serves_two_threads_one_at_a_time(cpu_graph_runners):
+    """Two threads call one graph runner on inputs of one shape at once (two
+    services on one RunnerCache): each call returns what it returns alone,
+    bit for bit. The statics' lock holds a call's load, replays and clone
+    together; without it one thread's load overwrote the other's inputs,
+    state and round id between replays."""
+    import threading
+
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec
+
+    mesh = VirtualMesh(2, "cpu")
+    spec = make_kmeans_iterative_spec(3, mesh)
+    runner = cpu_graph_runners(spec, mesh, _cfg(), 4)
+    calls = [(*_kmeans_case(mesh, 64, 1), 0), (*_kmeans_case(mesh, 64, 2), 100)]
+    want = [runner(inp, st, off) for inp, st, off in calls]
+    eager = [tdrv._EagerRunner(spec, mesh, _cfg(), 4)(inp, st, off) for inp, st, off in calls]
+    for got, ref_ in zip(want, eager):
+        assert torch.equal(got[0], ref_[0]) and got[3:] == ref_[3:]
+    results, errors = {0: [], 1: []}, []
+
+    def worker(i):
+        try:
+            for _ in range(6):
+                results[i].append(runner(*calls[i]))
+        except BaseException as exc:  # noqa: BLE001 -- surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    for i in (0, 1):
+        for got in results[i]:
+            assert torch.equal(got[0], want[i][0])
+            assert torch.equal(got[1]["centers"], want[i][1]["centers"])
+            assert torch.equal(got[1]["shift"], want[i][1]["shift"]) and got[3:] == want[i][3:]
+    assert len(runner._statics) == 1 and runner._statics.budget.limit is None
+
+
+@pytest.mark.parametrize("cached", [True, False], ids=["runner_cache", "runner_dict"])
+def test_fit_runner_keeps_at_most_its_cap_of_shapes(cpu_graph_runners, cached):
+    """Fits at four sizes through a fit runner whose cache is capped (a
+    shared RunnerCache(max_resident=2), or the fit's own RunnerCache: one
+    runner per chunk size of its ladder, 1 and 2, and one more) hold the
+    statics of the most recently used sizes, as many as the cap; every fit,
+    an evicted size's again too, equals the eager fit bit for bit."""
+    from repro_torch.core.kmeans import kmeans_fit, make_kmeans_runner
+    from repro_torch.serve import RunnerCache
+
+    mesh = VirtualMesh(2, "cpu")
+    cache = RunnerCache(max_resident=2) if cached else None
+    runner = make_kmeans_runner(mesh, 3, secure=_cfg(), threshold=1e-3, rounds_per_dispatch=2,
+                                cache=cache)
+    own = cache if cached else runner.runners
+    assert isinstance(own, RunnerCache) and own.max_resident == (2 if cached else 3)
+    budget, cap = own.shape_budget, own.max_resident
+    lru, evictions = [], 0
+    for i, (n, seed) in enumerate([(64, 1), (96, 2), (128, 3), (160, 4), (64, 1)]):
+        inp, init = _kmeans_case(mesh, n, seed)
+        got = kmeans_fit(inp["p"], 3, mesh, runner=runner, max_iter=12)
+        want = kmeans_fit(inp["p"], 3, mesh, secure=_cfg(), threshold=1e-3, max_iter=12,
+                          rounds_per_dispatch=2)
+        assert torch.equal(got.centers, want.centers), n
+        assert (got.n_iter, got.center_shift) == (want.n_iter, want.center_shift)
+        runners = list(own._runners.values())
+        assert all(r._statics is runners[0]._statics for r in runners)
+        held = {key[0][0][1] for key in runners[0]._statics}  # points per shard
+        lru = [m for m in lru if m != n // 2] + [n // 2]
+        if len(lru) > cap:
+            lru, evictions = lru[1:], evictions + 1
+        assert held == set(lru) and len(budget) == len(held), (n, held, lru)
+    assert budget.evictions == evictions > 0
+
+
+def test_shape_budget_never_evicts_statics_in_use():
+    """Over its limit the budget evicts the least recently used statics that
+    no call holds; one in use stays until released. Statics whose warm-up
+    failed (never `ready`) are dropped when their last user releases them."""
+    budget = tdrv.ShapeBudget(1)
+    a, b = tdrv._Store(budget), tdrv._Store(budget)  # two jobs' stores of statics
+
+    def use(store, key, within=budget):
+        st = within.use(store, key)
+        st.ready = True  # as after the caller's warm-up
+        return st
+
+    held = use(a, "x")  # a call in progress
+    budget.release(b, "y", use(b, "y"))
+    assert set(a) == {"x"} and not b  # y was the one not in use
+    held2 = use(b, "z")  # two calls in progress: over the limit, none evicted
+    assert set(a) == {"x"} and set(b) == {"z"} and len(budget) == 2
+    budget.release(a, "x", held)  # x is released and least recently used
+    assert not a and set(b) == {"z"} and len(budget) == 1
+    budget.release(b, "z", held2)
+    assert set(b) == {"z"} and budget.evictions == 2
+    budget.release(b, "w", budget.use(b, "w"))  # evicts z; w's warm-up raised: not kept
+    assert not b and len(budget) == 0 and budget.evictions == 3
+    unbounded = tdrv.ShapeBudget()
+    c = tdrv._Store(unbounded)
+    for key in range(5):
+        unbounded.release(c, key, use(c, key, unbounded))
+    assert len(unbounded) == 5 and unbounded.evictions == 0
+
+
+def test_dropped_runners_free_their_statics_without_the_collector(cpu_graph_runners):
+    """A runner, its budget and its statics form no reference cycle: once
+    the runner (or the cache holding it) is dropped, its statics -- the
+    input copies and captures on the card -- are freed at once, not at the
+    next collection, and leave the budget's count."""
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec
+
+    mesh = VirtualMesh(2, "cpu")
+    runner = cpu_graph_runners(make_kmeans_iterative_spec(3, mesh), mesh, _cfg(), 2)
+    budget = tdrv.ShapeBudget(4)
+    runner.keep_shapes_within(budget)
+    runner(*_kmeans_case(mesh, 64, 1), 0)
+    st = weakref.ref(next(iter(runner._statics.values())))
+    assert len(budget) == 1
+    gc.collect()
+    gc.disable()
+    try:
+        del runner
+        assert st() is None and len(budget) == 0
+    finally:
+        gc.enable()
+
+
+def test_runner_cache_eviction_and_clear_free_statics(cpu_graph_runners):
+    """A RunnerCache frees what its graph runners hold as it lets them go:
+    an evicted runner's captures at once, its job's statics once no resident
+    runner shares them, and everything on clear(); captures() and the
+    shape count follow. Nothing waits for the collector."""
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec
+    from repro_torch.serve import RunnerCache
+
+    mesh = VirtualMesh(2, "cpu")
+    spec = make_kmeans_iterative_spec(3, mesh)
+    cache = RunnerCache(max_resident=2)
+    case = _kmeans_case(mesh, 64, 1)
+
+    def get(job, n, share=None):
+        return cache.get_or_build((job, n), lambda: cpu_graph_runners(
+            spec, mesh, _cfg(), n, share_with=None if share is None else cache._runners[share]))
+
+    gc.collect()
+    gc.disable()
+    try:
+        get("a", 1)(*case, 0)
+        get("a", 2, share=("a", 1))(*case, 0)  # job a's two chunk sizes share statics
+        st = weakref.ref(next(iter(cache._runners[("a", 1)]._statics.values())))
+        assert set(st().captured) == {1, 2} and cache.captures() == 2
+        assert len(cache.shape_budget) == 1
+        get("b", 1)(*_kmeans_case(mesh, 96, 2), 0)  # evicts ("a", 1): its capture goes
+        assert set(st().captured) == {2} and cache.captures() == 2
+        assert len(cache.shape_budget) == 2 and cache.evictions == 1
+        get("c", 1)  # evicts ("a", 2): job a's statics go with its last runner
+        assert st() is None and len(cache.shape_budget) == 1 and cache.captures() == 1
+        cache.clear()
+        assert len(cache.shape_budget) == 0 and cache.captures() == 0
+    finally:
+        gc.enable()
+
+
+def test_pytree_walkers_keep_no_leaf_alive():
+    """Flattening, unflattening, mapping and naming the paths of a tree leave
+    no reference cycle behind: once the caller drops the tree, its leaves
+    (device tensors on the card) are freed at once, not by the collector."""
+    from repro_torch import tree as ttree
+
+    t = {"a": torch.zeros(3), "b": [torch.ones(2), (torch.ones(1), torch.zeros(()))]}
+    leaves, treedef = ttree.tree_flatten(t)
+    refs = [weakref.ref(x) for x in leaves]
+    gc.collect()
+    gc.disable()
+    try:
+        assert ttree.tree_unflatten(treedef, leaves)["b"][1][0] is leaves[2]
+        ttree.tree_map(lambda x: x + 1, t)
+        assert ttree.tree_paths(t) == ["['a']", "['b'][0]", "['b'][1][0]", "['b'][1][1]"]
+        del t, leaves, treedef
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()

@@ -201,6 +201,16 @@ def _run_twice(pts, ctr, wt):
     (1, 4000, 64, 435),   # the largest K at D=64: centre table streamed in chunks
     (2, 1500, 1, 2000),   # D=1, K=2000: one column, the table whole
     (1, 700, 1, 8000),    # D=1, K=8000: one column, the table in chunks
+    (2, 3001, 64, 436),   # past the old range at D=64: partial sums in centre blocks
+    (1, 2000, 64, 4096),
+    (2, 1777, 65, 436),   # D=65: a chunk of 64 columns and a ragged one of 1
+    (1, 2500, 128, 1024), # two full chunks, two column blocks
+    (3, 999, 256, 4096),  # four chunks; 33 centre blocks of 128 in the assign
+    (2, 1234, 200, 1024), # a ragged last chunk of 8 columns
+    (1, 1500, 65, 1024),
+    (2, 700, 128, 436),
+    (1, 600, 256, 1024),
+    (1, 800, 100, 4096),  # D not a multiple of 4: 4-byte copies in the accumulate
 ])
 def test_kmeans_kernel_matches_plain(cuda, s, n, d, k):
     rng = np.random.default_rng(n)
@@ -251,11 +261,28 @@ def test_kmeans_kernel_zero_weights_and_empty(cuda):
 
 @pytest.mark.gpu
 def test_kmeans_kernel_refuses_shapes_out_of_range(cuda):
-    pts = torch.zeros((1, 10, 64), device=cuda)
-    with pytest.raises(ValueError, match="does not take K=436"):
-        kmeans_assign(pts, torch.zeros((436, 64), device=cuda))
-    with pytest.raises(ValueError, match="D <= 64"):
-        kmeans_assign(torch.zeros((1, 10, 65), device=cuda), torch.zeros((4, 65), device=cuda))
+    """Every K >= 1 and D >= 1 is in range; no centre or no column is not."""
+    with pytest.raises(ValueError, match="K >= 1 and D >= 1"):
+        kmeans_assign(torch.zeros((1, 10, 64), device=cuda), torch.zeros((0, 64), device=cuda))
+    with pytest.raises(ValueError, match="K >= 1 and D >= 1"):
+        kmeans_assign(torch.zeros((1, 10, 0), device=cuda), torch.zeros((4, 0), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,k", [(65, 436), (128, 1024), (256, 4096)])
+def test_kmeans_kernel_empty_and_zero_weights_past_the_old_range(cuda, d, k):
+    """n = 0 and all-zero weights at the shapes the old kernel refused."""
+    rng = np.random.default_rng(d + k)
+    ctr = torch.as_tensor(rng.random((k, d)).astype(np.float32), device=cuda)
+    a, sums, counts = _run_twice(torch.zeros((3, 0, d), device=cuda), ctr,
+                                 torch.zeros((3, 0), device=cuda))
+    assert a.shape == (3, 0) and sums.shape == (3, k, d) and counts.shape == (3, k)
+    assert not bool(sums.any()) and not bool(counts.any())
+    pts = torch.as_tensor(rng.random((2, 333, d)).astype(np.float32), device=cuda)
+    a, sums, counts = _run_twice(pts, ctr, torch.zeros((2, 333), device=cuda))
+    ra, tie = _near_ties(pts, ctr)
+    assert int(((ra != a) & ~tie).sum()) == 0
+    assert not bool(sums.any()) and not bool(counts.any())
 
 
 # --- sort, grep and wordcount on the card against the CPU plain path --------------------
@@ -713,4 +740,235 @@ def test_kmeans_runner_serves_fits_of_two_sizes_on_the_card(cuda):
                           rounds_per_dispatch=4)
         assert torch.equal(got.centers, want.centers), n
         assert (got.n_iter, got.center_shift) == (want.n_iter, want.center_shift)
-    assert runner.runners[1].captures == 2
+    assert runner.runners.get_or_build(1, None).captures == 2  # a hit: nothing is built
+
+
+# --- the k-means kernel past the old range, through the fit and the service --------
+
+
+@pytest.mark.gpu
+def test_kmeans_fit_d128_k1024_on_the_card_gives_the_cpus_rounds(cuda):
+    """kmeans_fit at D=128, K=1024 (a shape the old kernel refused) on the
+    card: the CPU plain path's n_iter and rounds, centres within rtol 1e-4
+    and atol 1e-5 (sums taken in another order)."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.kmeans import kmeans_fit
+
+    pts, true_c = generate_points(8 * 2048, 1024, d=128, seed=11, spread=0.01)
+    fits = {dev: kmeans_fit(pts, 1024, VirtualMesh(8, dev), max_iter=6, threshold=1e-6,
+                            init_centers=true_c)
+            for dev in ("cuda", "cpu")}
+    card, cpu = fits["cuda"], fits["cpu"]
+    assert (card.n_iter, card.n_rounds_dispatched) == (cpu.n_iter, cpu.n_rounds_dispatched)
+    torch.testing.assert_close(card.centers.cpu(), cpu.centers, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,k", [(65, 436), (128, 1024), (256, 4096)])
+def test_submit_kmeans_takes_shapes_past_the_old_range(cuda, d, k):
+    """The card service serves k-means at (D, K) the old kernel refused;
+    the result matches the CPU service's within rtol 1e-4 and atol 1e-5, in
+    the same number of rounds."""
+    from repro_torch import VirtualMesh
+    from repro_torch.serve import SecureJobService
+
+    pts, true_c = generate_points(2 * k + 77, k, d=d, seed=d, spread=0.01)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with SecureJobService(VirtualMesh(8, dev), secure=_cfg(), max_chunk=2) as svc:
+            out[dev] = svc.submit_kmeans(pts, k, threshold=1e-6, max_rounds=3,
+                                         init_centers=true_c).result(600)
+    assert out["cuda"]["n_iter"] == out["cpu"]["n_iter"]
+    np.testing.assert_allclose(out["cuda"]["centers"], out["cpu"]["centers"], rtol=1e-4,
+                               atol=1e-5)
+
+
+# --- graph runners shared across threads, and their shape bound --------------------
+
+
+@pytest.mark.gpu
+def test_two_services_on_one_cache_from_two_threads_equal_serial(cuda):
+    """Two SecureJobServices on one RunnerCache serve same-bucket k-means
+    jobs at once (each its own scheduler thread, one graph runner between
+    them): every result equals the serial one bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.serve import RunnerCache, SecureJobService
+
+    mesh = VirtualMesh(8, cuda)
+    jobs = [generate_points(8 * 3000, 8, d=16, seed=s)[0] for s in range(6)]
+
+    def serve(services):
+        handles = [services[i % len(services)].submit_kmeans(p, 8, threshold=1e-5,
+                                                              max_rounds=6)
+                   for i, p in enumerate(jobs)]
+        return [h.result(600) for h in handles]
+
+    cache = RunnerCache()
+    with SecureJobService(mesh, secure=_cfg(), cache=cache, max_chunk=2) as one:
+        serial = serve([one])
+    a = SecureJobService(mesh, secure=_cfg(), cache=cache, max_chunk=2)
+    b = SecureJobService(mesh, secure=_cfg(), cache=cache, max_chunk=2)
+    try:
+        for _ in range(2):
+            together = serve([a, b])
+            for got, want in zip(together, serial):
+                np.testing.assert_array_equal(got["centers"], want["centers"])
+                assert got["n_iter"] == want["n_iter"]
+    finally:
+        a.close()
+        b.close()
+    # one shape between the two services: every call used the same statics
+    assert len(cache.shape_budget) == 1
+
+
+@pytest.mark.gpu
+def test_fits_at_three_sizes_through_a_cache_capped_at_two_hold_two_statics(cuda):
+    """A fit runner on a RunnerCache(max_resident=2): fits at three sizes
+    keep the statics (input copies and captures) of the two most recently
+    used sizes; each fit equals the eager fit bit for bit; clearing the
+    cache frees them."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.kmeans import kmeans_fit, make_kmeans_runner
+    from repro_torch.serve import RunnerCache
+
+    mesh = VirtualMesh(8, cuda)
+    cache = RunnerCache(max_resident=2)
+    runner = make_kmeans_runner(mesh, 8, secure=_cfg(), threshold=2e-3, rounds_per_dispatch=2,
+                                cache=cache)
+    for n in (8 * 1024, 8 * 2048, 8 * 3072, 8 * 1024):
+        pts, _ = generate_points(n, 8, d=16, seed=n)
+        got = kmeans_fit(pts, 8, mesh, runner=runner, max_iter=8)
+        want = kmeans_fit(pts, 8, mesh, secure=_cfg(), threshold=2e-3, max_iter=8,
+                          rounds_per_dispatch=2)
+        assert torch.equal(got.centers, want.centers), n
+    statics = {id(st) for r in cache._resident() for st in r._statics.values()}
+    assert len(statics) == len(cache.shape_budget) == 2
+    assert cache.shape_budget.evictions == 2
+    held = torch.cuda.memory_allocated(cuda)
+    cache.clear()  # frees the statics and captures at once
+    assert len(cache.shape_budget) == 0 and cache.captures() == 0
+    assert torch.cuda.memory_allocated(cuda) < held
+
+
+# --- the enclave layers on the card -------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 1024, 1 << 20])
+def test_mac_tag_words_on_the_card_equals_the_host_tag(cuda, n):
+    from repro_torch.crypto import mac
+
+    rng = np.random.default_rng(n)
+    msg = rng.integers(0, 2**32, n, dtype=np.uint32)
+    rs, ss = mac.mac_keys_from_keystream(np.arange(8, dtype=np.uint32),
+                                         np.arange(3, dtype=np.uint32), 5)
+    tag = mac.mac_tag_words(torch.from_numpy(msg.view(np.int32)).to(cuda), rs, ss)
+    assert tag.device.type == "cuda"
+    np.testing.assert_array_equal(tag.cpu().numpy().view(np.uint32), mac.mac_tag_host(msg, rs, ss))
+
+
+def _secvm_progs():
+    from repro_torch.core import secvm
+
+    poly = secvm.assemble([("LOADC", 2, 0, 0), ("LOADC", 3, 0, 1), ("LOADC", 0, 0, 2),
+                           ("MUL", 4, 1, 1), ("FMA", 0, 4, 2), ("FMA", 0, 1, 3),
+                           ("NOP", 0, 0, 0)], consts=[2.0, 3.0, 1.0])
+    dist = secvm.assemble([("LOADC", 3, 0, 0), ("LOADC", 4, 0, 1), ("SUB", 5, 1, 3),
+                           ("SUB", 6, 2, 4), ("MUL", 5, 5, 5), ("FMA", 5, 6, 6),
+                           ("SQRT", 0, 5, 0)], consts=[0.5, -1.5, 0.0])
+    return poly, dist
+
+
+def _kernel_sequences(fns) -> list:
+    """Each fn's kernel names in order, all in one profiler session, split at
+    spin-kernel markers before each fn and after the last; a sacrificial
+    spin kernel goes first after each synchronise (the profiler has been
+    seen to lose the first kernel launched after one)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for fn in list(fns) + [None]:
+            torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
+            if fn is not None:
+                fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    segments, cur = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            if cur:
+                segments.append(tuple(cur))
+            cur = []
+        elif cur is not None:
+            cur.append(e.name)
+    assert len(segments) == len(fns)
+    return segments
+
+
+@pytest.mark.gpu
+def test_secvm_on_the_card_matches_the_oracle_without_a_sync(cuda):
+    """run_encrypted on the card equals the oracle (rtol 1e-5) and, warm,
+    makes no synchronising call; two programs of one length launch the same
+    kernels in the same order (profiler: three calls of each in turns, each
+    program's sequence the one two of its calls agree on)."""
+    from repro_torch.core import secvm
+    from repro_torch.crypto import chacha
+
+    kw, nw = chacha.key_to_words(bytes(range(32))), chacha.nonce_to_words(b"\x03" * 12)
+    x = np.random.default_rng(0).normal(size=(2, 4099)).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda)
+    calls = []
+    for prog in _secvm_progs():
+        code_ct, consts_ct = secvm.encrypt_program(prog, kw, nw, 9, device=cuda)
+        got = secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 9)
+        np.testing.assert_allclose(got.cpu().numpy(), secvm.run_oracle(prog, x), rtol=1e-5,
+                                   atol=1e-5)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            secvm.run_encrypted(code_ct, consts_ct, xd, kw, nw, 9)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(lambda c=code_ct, k=consts_ct: secvm.run_encrypted(c, k, xd, kw, nw, 9))
+    seqs = _kernel_sequences(calls * 3)
+    agreed = []
+    for i in (0, 1):
+        mine = seqs[i::2]
+        best = max(set(mine), key=mine.count)
+        assert mine.count(best) >= 2
+        agreed.append(best)
+    assert len(agreed[0]) > 18 * 7 and agreed[0] == agreed[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [(torch.int32, (7, 4)), (torch.float32, (3,)),
+                                         (torch.uint8, (37,)), (torch.bfloat16, (5, 3)),
+                                         (torch.int32, (0,))])
+def test_ctr_encrypt_array_on_the_card_is_one_kernel_launch(cuda, dtype, shape):
+    """crypto/ctr.py on a CUDA tensor: one launch of the ChaCha20 kernel per
+    crypt, the CPU ARX's bits (a counter wrapping at 2**32), whether the
+    counter is a host int or a 0-d device tensor (read by the kernel from
+    device memory, never on the host: the crypt is clean under
+    set_sync_debug_mode("error"))."""
+    from repro_torch.crypto import chacha, ctr
+    from repro_torch.kernels.chacha20 import kernel
+
+    kw, nw = chacha.key_to_words(bytes(range(32))), chacha.nonce_to_words(b"\x07" * 12)
+    n = int(np.prod(shape))
+    raw = np.random.default_rng(3).integers(0, 256, (4 * max(n, 1),), np.uint8)
+    x = torch.from_numpy(raw).view(dtype)[:n].reshape(shape)
+    want = ctr.encrypt_array(x, kw, nw, 2**32 - 1)
+    before = kernel.launches
+    got = ctr.encrypt_array(x.to(cuda), kw, nw, 2**32 - 1)
+    assert kernel.launches == before + (1 if x.numel() else 0)
+    assert torch.equal(got.cpu().view(torch.uint8), want.view(torch.uint8))
+    xd, counter = x.to(cuda), torch.tensor(2**32 - 1, dtype=torch.int64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dev_ctr = ctr.encrypt_array(xd, kw, nw, counter)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernel.launches == before + (2 if x.numel() else 0)
+    assert torch.equal(dev_ctr.cpu().view(torch.uint8), want.view(torch.uint8))

@@ -151,10 +151,12 @@ def test_tf32_rounding_emulation():
     assert np.max(np.abs((hi.astype(np.float64) + lo) - x) / np.abs(x)) < 2.0 ** -21
 
 
-@pytest.mark.parametrize("k,d,ok", [(435, 64, True), (436, 64, False), (256, 64, True),
-                                    (8082, 1, True), (8083, 1, False), (7, 3, True),
-                                    (4, 65, False), (0, 4, False)])
+@pytest.mark.parametrize("k,d,ok", [(435, 64, True), (436, 64, True), (256, 64, True),
+                                    (8082, 1, True), (8083, 1, True), (7, 3, True),
+                                    (4, 65, True), (1024, 128, True), (4096, 256, True),
+                                    (0, 4, False), (4, 0, False)])
 def test_kernel_admits_its_contracted_shapes(k, d, ok):
+    """Every K >= 1 and D >= 1: the kernel takes every shape the reference takes."""
     from repro_torch.kernels.kmeans.kernel import admits
 
     assert admits(k, d) is ok

@@ -489,3 +489,39 @@ def test_service_close_stops_its_scheduler_thread():
     svc.close()  # drains the queued job first
     assert h.done() and not svc._thread.is_alive()
     np.testing.assert_array_equal(h.result()["counts"], [1.0])
+
+
+def test_runner_cache_cap_bounds_shapes_and_eager_runners_keep_none():
+    """`max_resident` also bounds the shapes whose statics the cache's graph
+    runners keep: the cache hands its `shape_budget` to every runner it
+    builds, through its views and a served job's runners too (the graph
+    side is held in tests/test_torch_driver_state.py). The CPU mesh's eager
+    runners keep no statics: fits at three sizes through a cache capped at
+    two leave the budget empty, and stats() reports it. A fit runner without
+    a cache keeps its runners in a small RunnerCache of its own: one per
+    chunk size of its ladder (1, 2, 4, 8) and one more."""
+    from repro_torch.serve.service import JobHandle, _JobRunners
+
+    cache = RunnerCache(max_resident=2)
+    assert cache.shape_budget.limit == 2 and RunnerCache().shape_budget.limit is None
+
+    class Graphish:
+        captures = pool_bytes = 0
+
+        def keep_shapes_within(self, budget):
+            self.budget = budget
+
+    handle = JobHandle(job_id=0, kind="kmeans", n=1, bucket=1, round_base=0, max_rounds=1)
+    job_runners = _JobRunners(cache.view(spec_id=("x",), mesh=_mesh(2)), handle)
+    assert job_runners.get_or_build(1, Graphish).budget is cache.shape_budget
+    cache.clear()
+    runner = tkm.make_kmeans_runner(_mesh(2), 3, secure=_cfg(), rounds_per_dispatch=2,
+                                    threshold=1e-3, cache=cache)
+    for n, seed in ((64, 1), (96, 2), (128, 3)):
+        pts, _ = tkm.generate_points(n, 3, d=2, seed=seed)
+        tkm.kmeans_fit(pts, 3, _mesh(2), runner=runner, max_iter=12)
+    assert len(cache) == 2 and cache.captures() == 0
+    s = cache.stats()
+    assert (s["shapes"], s["shape_evictions"]) == (0, 0)
+    plain = tkm.make_kmeans_runner(_mesh(2), 3, threshold=1e-3)
+    assert isinstance(plain.runners, RunnerCache) and plain.runners.max_resident == 5

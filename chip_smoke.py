@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs twelve phases, each printing one JSON line, and a thirteenth line:
+then runs thirteen phases, each printing one JSON line, and a fourteenth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -88,14 +88,30 @@ then runs twelve phases, each printing one JSON line, and a thirteenth line:
                  against the bytes bound; the kernels' launches on this path
                  (its own calls, not the check's reference step: ChaCha > 0,
                  k-means 0, as the cluster k-means runs on the host)
+  calibrate      the calibrated cost model on the card: run_calibration(quick)
+                 on 8 virtual shards (every fitted constant, >= 0 and finite,
+                 and the seconds it took); saved to a temporary JSON and
+                 activated through $REPRO_CALIBRATION, each `auto` resolver
+                 answers the model's recommendation, and with the variable
+                 unset its default; trace_workload of the main path's secure
+                 k-means round (4,194,304 x 64, K=256), a sort round and a
+                 grep round: predicted wire bytes == the wire record of the
+                 path's own rounds exactly, predicted round us beside the
+                 served graph round's ms (`pred_over_measured`, not asserted:
+                 per-item map math is the model's known blind spot) and the
+                 predicted capture seconds; hillclimb cells S and K on this
+                 calibration (best vector, resolver vector); the kernels'
+                 launches on this path (ChaCha > 0 from the secure probes and
+                 traces, k-means >= 1 from the k-means trace)
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
                  alive)
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
-                 (ChaCha20: k-means, sort, grep, wordcount, enclave; k-means:
-                 k-means), each counted from 0 just before that
+                 (ChaCha20: k-means, sort, grep, wordcount, enclave,
+                 calibrate; k-means: k-means, calibrate), each counted from 0
+                 just before that
                  path's run, and on the serve path (by profiler: replayed
                  graphs bypass the wrappers' counters); the k-means kernel's
                  D=128, K=1024 figures
@@ -646,7 +662,8 @@ def round_counts(driver, spec, inputs, init_state, mesh, secure):
     inp, state, layout = driver._place(spec, mesh, inputs, init_state)
 
     def one_round():
-        st, aux, _ = driver._round(spec, mesh, inp, state, 0, secure, None, {}, layout)
+        st, aux, _ = driver._round(spec, mesh, inp, state, 0, secure, True, {}, layout,
+                                   capacity_factor=2.0)
         if spec.halt_fn is None:
             return None
         return bool(spec.halt_fn(st, aux, 0))
@@ -1359,7 +1376,7 @@ _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                       "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def phase_serve(dev, tokens_np, tokens):
+def phase_serve(dev, tokens_np, tokens, pts_np):
     """The secure job service on 8 virtual shards, one shared RunnerCache,
     max_concurrent=3: a cold k-means job (3,000,000 of the main path's points,
     bucket 4,194,304), warm ones of 4,194,304 and 2,500,000 points (0 misses,
@@ -1369,14 +1386,12 @@ def phase_serve(dev, tokens_np, tokens):
     np.sort, grep == numpy)."""
     from repro_torch import VirtualMesh
     from repro_torch.core import driver
-    from repro_torch.core.kmeans import generate_points, kmeans_fit, paper_threshold
+    from repro_torch.core.kmeans import kmeans_fit, paper_threshold
     from repro_torch.kernels.chacha20 import kernel as ck
     from repro_torch.kernels.kmeans import kernel as kk
     from repro_torch.serve import RunnerCache, SecureJobService
 
-    pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)
     points = torch.from_numpy(pts_np).to(dev)
-    del pts_np
     values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
     values = torch.from_numpy(values_np).to(dev)
     patterns = np.random.default_rng(GREP_SEED).choice(
@@ -1568,6 +1583,151 @@ def copy_figures(driver, view, mesh, inputs, init):
             "copy_out_ms": cuda_ms(lambda: tree_map(torch.clone, st.state), 10)}
 
 
+CAL_KNOB_ENVS = ("REPRO_SHUFFLE_COALESCE", "REPRO_CHUNK_GROWTH", "REPRO_STATE_SPECS",
+                 "REPRO_BUCKET_GROWTH", "REPRO_SERVICE_MAX_RUNNERS")
+
+
+def phase_calibrate(dev, pts_np, tokens, fit, srt, grp, srv):
+    """The calibrated cost model on the card: a quick calibration on 8
+    virtual shards, the `auto` resolvers under it (through
+    $REPRO_CALIBRATION) and without it, the main path's k-means, sort and
+    grep rounds traced and predicted, and hillclimb cells S and K on it."""
+    import tempfile
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver, shuffle
+    from repro_torch.core.grep import make_grep_spec
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
+    from repro_torch.core.sort import initial_edges, make_sample_sort_spec
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.launch import hillclimb
+    from repro_torch.perf import calibrate, model as perf_model
+    from repro_torch.serve import service
+
+    t_phase = time.perf_counter()
+    set_knobs = [v for v in CAL_KNOB_ENVS + (calibrate.CALIBRATION_ENV,) if v in os.environ]
+    check(not set_knobs, f"knob variables set in the environment: {set_knobs}")
+    mesh = VirtualMesh(SHARDS, dev)
+    cfg = _secure_cfg()
+    torch.cuda.synchronize()
+    ck.launches = kk.launches = 0
+    t0 = time.perf_counter()
+    cal = calibrate.run_calibration(mesh, quick=True)
+    cal_s = time.perf_counter() - t0
+    consts = {"chacha": cal.chacha, "all_to_all": cal.all_to_all, "dispatch": cal.dispatch,
+              "round": cal.round, "compile": cal.compile}
+    numbers = [v for part in consts.values() for e in part.values()
+               for v in (e.values() if isinstance(e, dict) else [e])
+               if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    check(all(np.isfinite(v) and v >= 0 for v in numbers), f"calibration constants {consts}")
+    check(cal.key == f"torch-cuda/{torch.cuda.device_count()}" and cal.n_shards == SHARDS,
+          f"calibration key {cal.key}, shards {cal.n_shards}")
+    cm = perf_model.CostModel(cal)
+
+    def resolved():
+        rec = perf_model.recommendation("sort_capacity", bucket=SORT_N, n_shards=SHARDS)
+        return {"coalesce": shuffle.resolve_coalesce("auto"),
+                "chunk_growth": driver.resolve_chunk_growth(
+                    "auto", min_chunk=1, max_rounds=MAX_ITER, max_chunk=ROUNDS_PER_DISPATCH),
+                "capacity_factor": driver.resolve_capacity_factor(),
+                "bucket_growth": service.resolve_bucket_growth(),
+                "max_resident": service.resolve_max_resident("auto"),
+                "sort_capacity": SORT_N // SHARDS if rec is None else int(rec)}
+
+    model_answers = {
+        "coalesce": cm.recommend("coalesce"),
+        "chunk_growth": cm.recommend("chunk_growth", min_chunk=1, max_rounds=MAX_ITER,
+                                     max_chunk=ROUNDS_PER_DISPATCH),
+        "capacity_factor": cm.recommend("capacity_factor"),
+        "bucket_growth": cm.recommend("bucket_growth"),
+        "max_resident": (None if cm.recommend("max_resident") == "unbounded"
+                         else cm.recommend("max_resident")),
+        "sort_capacity": cm.recommend("sort_capacity", bucket=SORT_N, n_shards=SHARDS)}
+    defaults = {"coalesce": True, "chunk_growth": 2, "capacity_factor": 2.0,
+                "bucket_growth": 2.0, "max_resident": None, "sort_capacity": SORT_N // SHARDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        calibrate.save_calibration(cal, path)
+        os.environ[calibrate.CALIBRATION_ENV] = path
+        perf_model.clear_active_model()
+        try:
+            check(perf_model.active_model().cal == cal, "$REPRO_CALIBRATION loaded another entry")
+            under_model = resolved()
+        finally:
+            del os.environ[calibrate.CALIBRATION_ENV]
+            perf_model.clear_active_model()
+    check(under_model == model_answers,
+          f"resolvers under the calibration {under_model} != the model's {model_answers}")
+    without = resolved()
+    check(without == defaults, f"resolvers without a calibration {without} != {defaults}")
+
+    # the main path's rounds, traced (one eager round each) and predicted
+    points = torch.from_numpy(pts_np).to(dev)
+    weights = torch.ones((N_POINTS,), dtype=torch.float32, device=dev)
+    values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
+    values = torch.from_numpy(values_np).to(dev)
+    cap = SORT_N // SHARDS
+    chunk = N_TOKENS // SHARDS // GREP_ROUNDS
+    patterns = np.asarray(grp["patterns"], np.int32)
+    workloads = {
+        "kmeans": (make_kmeans_iterative_spec(K, mesh, threshold=paper_threshold(points)),
+                   {"p": points, "w": weights}, points[:K].contiguous(), N_POINTS // SHARDS,
+                   fit["wire_bytes_per_round_per_shard"]),
+        "sort": (make_sample_sort_spec(mesh, cap, halt_total=SORT_N, balance=SORT_BALANCE,
+                                       shard_state=True),
+                 {"v": values},
+                 {"edges": torch.from_numpy(initial_edges(float(values_np.min()),
+                                                          float(values_np.max()),
+                                                          SHARDS)).to(dev),
+                  "counts": torch.zeros(SHARDS, device=dev),
+                  "sorted": torch.full((SHARDS, SHARDS * cap), torch.inf, device=dev)},
+                 SORT_N // SHARDS, srt["wire_bytes_per_round"] // SHARDS),
+        "grep": (make_grep_spec(patterns, chunk, mesh), {"t": tokens},
+                 {"hits": torch.zeros(GREP_PATTERNS, device=dev),
+                  "cursor": torch.zeros((), dtype=torch.int64, device=dev)},
+                 chunk, grp["wire_bytes_per_round"] // SHARDS)}
+    traces = {}
+    for kind, (spec, inputs, state, n_local, wire) in workloads.items():
+        runner = driver.make_iterative_runner(spec, mesh, cfg, n_rounds=SERVE_CHUNK)
+        tr = perf_model.trace_workload(runner, inputs, state, n_shards=SHARDS,
+                                       n_local_items=n_local)
+        check(cm.predict_wire_bytes(tr) == wire,
+              f"{kind}: predicted wire {cm.predict_wire_bytes(tr)} != the path's record {wire}")
+        check(tr.secure and tr.keystream_launches == 2 and tr.collectives == 1,
+              f"{kind}: traced round {tr}")
+        pred_ms = cm.predict_round_us(tr) / 1e3
+        measured = srv["chunk_by_kind"][kind]["ms_per_round"]
+        traces[kind] = {"n_local_items": n_local, "device_ops": tr.n_eqns,
+                        "wire_bytes_per_shard": tr.wire_bytes,
+                        "keystream_launches": tr.keystream_launches,
+                        "keystream_blocks": tr.keystream_blocks,
+                        "predicted_round_ms": pred_ms, "measured_graph_round_ms": measured,
+                        "pred_over_measured": pred_ms / measured,
+                        "predicted_capture_s": cm.predict_compile_s(tr),
+                        "wire_equals_record": True}
+    del points, weights, values, workloads
+
+    cell_s = {}
+    for vname, knobs in hillclimb.SERVICE_VARIANTS:
+        r = hillclimb.run_service_cell(**knobs)
+        cell_s[vname] = {t: {"bucketed_makespan_s": v["bucketed_makespan_s"],
+                             "compiles": v["compiles"], "evictions": v["evictions"]}
+                         for t, v in r["traces"].items()}
+    cell_k = hillclimb.rank_knob_vectors(cm, top=3)
+    launches = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
+    check(launches["chacha20"] > 0 and launches["kmeans_assign"] >= 1,
+          f"calibrate path launches {launches}")
+    res = {"phase": "calibrate", "shards": SHARDS, "key": cal.key, "calibration_s": cal_s,
+           "constants": consts, "resolved_under_model": under_model,
+           "resolved_without": without, "traces": traces, "hillclimb_S": cell_s,
+           "hillclimb_K": {"n_vectors": cell_k["n_vectors"], "best": cell_k["best"],
+                           "top": cell_k["top"], "resolver_vector": cell_k["resolver_vector"]},
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(argv)
     if not torch.cuda.is_available():
@@ -1584,9 +1744,8 @@ def main(argv=None) -> int:
     smi = phase_device(_build)
     cha = phase_chacha(dev)
 
-    pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)
+    pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)  # kept for serve and calibrate
     points = torch.from_numpy(pts_np).to(dev)
-    del pts_np
     freed = {}
     km = phase_kmeans_assign(dev, points.reshape(SHARDS, -1, D), points[:K].contiguous())
     freed["kmeans_assign"] = collect_garbage()
@@ -1608,9 +1767,12 @@ def main(argv=None) -> int:
     wc = phase_wordcount(dev, tokens_np, tokens)
     freed["wordcount"] = collect_garbage()
     torch.cuda.empty_cache()
-    srv = phase_serve(dev, tokens_np, tokens)
-    del tokens
+    srv = phase_serve(dev, tokens_np, tokens, pts_np)
     freed["serve"] = collect_garbage()
+    torch.cuda.empty_cache()
+    cal = phase_calibrate(dev, pts_np, tokens, fit, srt, grp, srv)
+    del tokens, pts_np
+    freed["calibrate"] = collect_garbage()
     torch.cuda.empty_cache()
     enc = phase_enclave(dev)
     freed["enclave"] = collect_garbage()
@@ -1620,7 +1782,8 @@ def main(argv=None) -> int:
     wire, big = cha["wire"], cha["64MiB"]
     by_path = {"kmeans": fit["launches"]["chacha20"], "sort": srt["launches"]["chacha20"],
                "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"],
-               "enclave": enc["launches"]["chacha20"]}
+               "enclave": enc["launches"]["chacha20"],
+               "calibrate": cal["launches"]["chacha20"]}
     check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
@@ -1660,7 +1823,8 @@ def main(argv=None) -> int:
          "replaces_function": "kmeans_assign_tiles",
          "launches": fit["launches"]["kmeans_assign"],
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
-         "launches_by_path": {"kmeans": fit["launches"]["kmeans_assign"]},
+         "launches_by_path": {"kmeans": fit["launches"]["kmeans_assign"],
+                              "calibrate": cal["launches"]["kmeans_assign"]},
          "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],

@@ -73,10 +73,36 @@ replaced by a guard whose every use raises a ValueError naming the leaf
 (the reference raises at trace time; the port, which does not trace, at the
 first `halt_fn` call -- in a graph runner, in the warm-up round before its
 capture -- and the job returns no result).
+
+Tuning (calibrated `auto` knobs). Every knob with an `auto` mode resolves,
+in order: explicit argument -> environment variable -> calibrated cost
+model -> historical default. The model is active only when
+$REPRO_CALIBRATION names a calibration JSON (`python -m
+repro_torch.perf.calibrate --out calibration.json`) or one is set with
+`repro_torch.perf.model.set_active_model`; without one every `auto`
+resolves to its historical default bit for bit.
+
+    knob            resolver                     env var                     default
+    chunk growth    resolve_chunk_growth         $REPRO_CHUNK_GROWTH         2
+    auto capacity   resolve_capacity_factor      -                           2.0
+    state layout    resolve_state_mode           $REPRO_STATE_SPECS          'sharded'
+    coalesce        shuffle.resolve_coalesce     $REPRO_SHUFFLE_COALESCE     True
+    bucket growth   serve.resolve_bucket_growth  $REPRO_BUCKET_GROWTH        2.0
+    residency cap   serve.resolve_max_resident   $REPRO_SERVICE_MAX_RUNNERS  unbounded
+    sort capacity   serve (submit_sort)          -                           bucket // R
+
+The state layout reads no model, as in the reference. Each knob is resolved
+once per job or runner build (the capacity factor and the wire layout when a
+runner is made, the chunk growth when a job starts), never per round: a
+round runs in Python on every eager round, and a resolver reads the
+environment and stats the calibration file. The reference's
+$REPRO_CHACHA_IMPL and $REPRO_HALT_LOOP have no counterpart: on the card the
+kernel is the only keystream route, and the port has one loop shape.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import warnings
 import weakref
@@ -88,13 +114,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import default_hash, shuffle_round
-from repro_torch.core.shuffle import wire_accounting
+from repro_torch.core.shuffle import resolve_coalesce, wire_accounting
 from repro_torch.crypto.chacha import MASK32, to_word_bits
 from repro_torch.device import pinned_constants
+from repro_torch.perf.model import recommendation
 from repro_torch.tree import tree_flatten, tree_map, tree_paths, tree_unflatten
-
-CAPACITY_FACTOR = 2.0  # headroom of the auto bucket capacity: ceil(n / R) * 2.0
-
 
 class P(tuple):
     """Stand-in for `jax.sharding.PartitionSpec`: P() replicated, P(axis) sharded."""
@@ -115,7 +139,8 @@ class IterativeSpec:
     reduce_fn(state, keys, values, valid, round_index) -> (new_state, aux),
         both per shard with a leading S dim and replicated by a collective.
     hash_fn(keys) -> u32 values; destination shard = hash_fn(k) % R.
-    capacity: per-destination slots C; 0 -> auto (ceil(n_mapped / R) * 2.0).
+    capacity: per-destination slots C; 0 -> auto (ceil(n_mapped / R) * the
+        capacity factor, `resolve_capacity_factor`: 2.0 by default).
     n_rounds: rounds of one `run_iterative_mapreduce` call.
     halt_fn(state, aux, round_index) -> bool scalar   [optional]
     state_specs: None / P() (replicated) or P(axis) (sharded), or a tree of
@@ -132,34 +157,78 @@ class IterativeSpec:
     state_specs: Any = None
 
 
-def resolve_chunk_growth(growth="auto") -> int:
-    """The chunk-ladder growth factor: an explicit int >= 1, or 2 for 'auto'/None."""
+STATE_SPECS_ENV = "REPRO_STATE_SPECS"
+_STATE_MODES = ("replicated", "sharded")
+
+
+def resolve_state_mode(mode="auto") -> str:
+    """Resolve a carried-state layout selector to 'replicated' | 'sharded'.
+
+    'auto'/None defers to $REPRO_STATE_SPECS, then to the default 'sharded'
+    (no calibrated answer, as in the reference); an explicit mode always
+    wins over the environment.
+    """
+    from_env = False
+    if mode in (None, "auto"):
+        env_val = os.environ.get(STATE_SPECS_ENV)
+        if env_val is None:
+            return "sharded"
+        mode, from_env = env_val.strip().lower(), True
+    if mode not in _STATE_MODES:
+        if from_env:
+            raise ValueError(
+                f"invalid ${STATE_SPECS_ENV}={mode!r} in the environment: "
+                f"carried-state mode must be one of {_STATE_MODES} "
+                f"(unset ${STATE_SPECS_ENV} to use the default 'sharded')")
+        raise ValueError(
+            f"carried-state mode must be one of {_STATE_MODES} or 'auto', got {mode!r}")
+    return mode
+
+
+CHUNK_GROWTH_ENV = "REPRO_CHUNK_GROWTH"
+
+
+def resolve_chunk_growth(growth="auto", *, min_chunk: int = 1, max_rounds: int = 64,
+                         max_chunk: int | None = None) -> int:
+    """Resolve the chunk-ladder growth factor to a concrete int >= 1.
+
+    An explicit int always wins; 'auto'/None defers to $REPRO_CHUNK_GROWTH,
+    then to the calibrated cost model when one is active (which minimizes
+    distinct-ladder-size captures + dispatch round trips for THIS
+    min_chunk/max_rounds/max_chunk window), then to the default 2.
+    """
+    from_env = False
     if growth in (None, "auto"):
-        return 2
+        env_val = os.environ.get(CHUNK_GROWTH_ENV)
+        if env_val is None:
+            rec = recommendation("chunk_growth", min_chunk=min_chunk, max_rounds=max_rounds,
+                                 max_chunk=max_chunk)
+            return 2 if rec is None else int(rec)
+        growth, from_env = env_val.strip(), True
     try:
         val = int(growth)
     except (TypeError, ValueError):
         val = 0
     if val < 1:
+        if from_env:
+            raise ValueError(
+                f"invalid ${CHUNK_GROWTH_ENV}={growth!r} in the environment: "
+                f"chunk growth must be an integer >= 1 "
+                f"(unset ${CHUNK_GROWTH_ENV} to use the default 2)")
         raise ValueError(f"growth must be an integer >= 1 or 'auto', got {growth!r}")
     return val
 
 
-_STATE_MODES = ("replicated", "sharded")
+def resolve_capacity_factor() -> float:
+    """Headroom factor of the auto bucket capacity (ceil(n / R) * factor).
 
-
-def resolve_state_mode(mode="auto") -> str:
-    """A carried-state layout selector as 'replicated' | 'sharded'.
-
-    'auto'/None is 'sharded', the reference's default; the port reads no
-    environment variable.
+    The calibrated cost model's answer when one is active, which departs
+    from the default 2.0 only when its calibration carries a
+    deployment-measured key skew (an undershot capacity silently drops
+    records, so no probe may shrink it); else 2.0.
     """
-    if mode in (None, "auto"):
-        return "sharded"
-    if mode not in _STATE_MODES:
-        raise ValueError(
-            f"carried-state mode must be one of {_STATE_MODES} or 'auto', got {mode!r}")
-    return mode
+    rec = recommendation("capacity_factor")
+    return 2.0 if rec is None else float(rec)
 
 
 def _resolve_state_specs(spec: IterativeSpec, state):
@@ -274,16 +343,17 @@ def _replica(tree):
 
 
 def _round(spec: IterativeSpec, mesh, inputs, state, r, secure, coalesce, info: dict,
-           layout: _StateLayout, r_wire=None):
+           layout: _StateLayout, r_wire=None, *, capacity_factor: float):
     """One round: map, shuffle, reduce. `r` is what the callbacks get (a host
     int, or a device scalar in a graph runner); `r_wire` (default `r`) keys
-    the shuffle's keystream."""
+    the shuffle's keystream. `coalesce` and `capacity_factor` come resolved
+    by the runner: a round resolves no knob."""
     mk, mv = spec.map_fn(state, inputs, r)
     if spec.combine_fn is not None:
         mk, mv = spec.combine_fn(mk, mv)
     n_mapped = mk.shape[1]
     capacity = spec.capacity or max(
-        1, int(np.ceil(-(-n_mapped // mesh.n_shards) * CAPACITY_FACTOR)))
+        1, int(np.ceil(-(-n_mapped // mesh.n_shards) * capacity_factor)))
     info["capacity"], info["capacity_auto"] = capacity, not spec.capacity
     flat_k, flat_v, valid, dropped = shuffle_round(
         mk, mv, mesh, hash_fn=spec.hash_fn, capacity=capacity, secure=secure,
@@ -293,7 +363,7 @@ def _round(spec: IterativeSpec, mesh, inputs, state, r, secure, coalesce, info: 
 
 
 def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secure,
-               coalesce, info: dict, layout: _StateLayout):
+               coalesce, info: dict, layout: _StateLayout, capacity_factor: float):
     """Up to n_rounds rounds; stops after the round whose halt_fn fires.
 
     Returns (state, [aux per executed round], [dropped per executed round],
@@ -303,7 +373,7 @@ def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secur
     for i in range(n_rounds):
         r = first_round + i
         state, aux, dropped = _round(spec, mesh, inputs, state, r, secure, coalesce, info,
-                                     layout)
+                                     layout, capacity_factor=capacity_factor)
         auxes.append(aux)
         drops.append(dropped)
         if spec.halt_fn is not None and bool(spec.halt_fn(layout.for_halt(state), aux, r)):
@@ -312,8 +382,13 @@ def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secur
 
 
 def _with_knobs(secure, chacha_impl, coalesce):
-    """The secure config with the keystream impl and wire layout in force."""
-    return None if secure is None else secure.with_impl(chacha_impl).with_coalesce(coalesce)
+    """The secure config with the keystream impl and the wire layout in force,
+    the layout resolved to a bool (`shuffle.resolve_coalesce`)."""
+    if secure is None:
+        return None
+    secure = secure.with_impl(chacha_impl)
+    return secure.with_coalesce(resolve_coalesce(
+        secure.coalesce if coalesce is None else coalesce))
 
 
 def _on_device(tree, mesh):
@@ -347,16 +422,19 @@ class _EagerRunner:
     captures = 0
     pool_bytes = 0
 
-    def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None):
-        self.spec, self.mesh, self.secure = spec, mesh, secure
-        self.n_rounds, self.coalesce = n_rounds, coalesce
+    def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None,
+                 capacity_factor: float | None = None):
+        self.spec, self.mesh, self.secure, self.n_rounds = spec, mesh, secure, n_rounds
+        self.coalesce = resolve_coalesce(coalesce)  # the plaintext wire's layout
+        self.capacity_factor = (resolve_capacity_factor() if capacity_factor is None
+                                else capacity_factor)
         self.trace_info: dict = {}
 
     def __call__(self, inputs, state, round_offset: int = 0):
         inputs, carried, layout = _place(self.spec, self.mesh, inputs, state)
         carried, auxes, drops, n_exec, halted = _run_chunk(
             self.spec, self.mesh, inputs, carried, self.n_rounds, int(round_offset),
-            self.secure, self.coalesce, self.trace_info, layout)
+            self.secure, self.coalesce, self.trace_info, layout, self.capacity_factor)
         aux = tree_map(lambda *xs: _stacked(xs, self.n_rounds), *auxes)
         return (layout.gather(carried, self.mesh), aux, _stacked(drops, self.n_rounds), n_exec,
                 halted)
@@ -563,8 +641,9 @@ class _GraphRunner:
 
     def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None,
                  share_with=None):
-        self.spec, self.mesh, self.secure = spec, mesh, secure
-        self.n_rounds, self.coalesce = n_rounds, coalesce
+        self.spec, self.mesh, self.secure, self.n_rounds = spec, mesh, secure, n_rounds
+        self.coalesce = resolve_coalesce(coalesce)  # the plaintext wire's layout
+        self.capacity_factor = resolve_capacity_factor()
         self.trace_info: dict = {}
         # shape key -> _Statics, shared by a job's runners and counted by a budget
         self._statics = _Store(ShapeBudget()) if share_with is None else share_with._statics
@@ -601,7 +680,8 @@ class _GraphRunner:
         spec, dev = self.spec, self.mesh.device
         r_wire = to_word_bits(st.r & MASK32).reshape(1)
         state, aux, dropped = _round(spec, self.mesh, st.inputs, st.state, st.r, self.secure,
-                                     self.coalesce, self.trace_info, st.layout, r_wire=r_wire)
+                                     self.coalesce, self.trace_info, st.layout, r_wire=r_wire,
+                                     capacity_factor=self.capacity_factor)
         halt = None
         if spec.halt_fn is not None:
             halt = spec.halt_fn(st.layout.for_halt(state), aux, st.r)
@@ -810,11 +890,14 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     """
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
-    growth = resolve_chunk_growth(growth)
+    growth = resolve_chunk_growth(growth, min_chunk=min_chunk, max_rounds=max_rounds,
+                                  max_chunk=max_chunk)
     if min_chunk < 1:
         raise ValueError(f"min_chunk must be >= 1, got {min_chunk}")
     max_chunk = min(max_chunk or max_rounds, max_rounds)
     secure = _with_knobs(secure, chacha_impl, coalesce)
+    if runners is None:  # the job's eager chunks share the knobs, resolved once
+        eager_knobs = (resolve_coalesce(coalesce), resolve_capacity_factor())
     get_or_build = getattr(runners, "get_or_build", None)
     inputs, state = _on_device(inputs, mesh), _on_device(init_state, mesh)
     executed = dispatched = n_dispatches = 0
@@ -832,7 +915,7 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
                                          share_with=prev)
 
         if runners is None:
-            runner = _EagerRunner(spec, mesh, secure, n, coalesce)
+            runner = _EagerRunner(spec, mesh, secure, n, *eager_knobs)
         elif get_or_build is not None:
             runner = get_or_build(n, build)
         else:

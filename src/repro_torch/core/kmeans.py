@@ -23,7 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.driver import IterativeSpec, P, resolve_chunk_growth, run_until
+from repro_torch.core.driver import IterativeSpec, P, run_until
 from repro_torch.core.engine import identity_hash
 from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
 from repro_torch.kernels.kmeans.ops import kmeans_assign
@@ -252,13 +252,15 @@ def _fit_runners(min_chunk: int, max_chunk: int):
     """A fit runner's own `RunnerCache`: room for one runner per chunk size
     of `run_until`'s ladder and one more for a chunk cut short by max_iter,
     so a fit replays without evicting its own runners; the same cap bounds
-    the sizes of points kept on the card."""
+    the sizes of points kept on the card. The ladder counted is growth 2's,
+    the densest of any growth the fit may resolve (a growth of 1 keeps one
+    size), so no knob is resolved here."""
     from repro_torch.serve.service import RunnerCache  # serve imports this module
 
     chunk = min(min_chunk, max_chunk)
     sizes = {chunk}
     while chunk < max_chunk:
-        chunk = min(chunk * resolve_chunk_growth(), max_chunk)
+        chunk = min(chunk * 2, max_chunk)
         sizes.add(chunk)
     return RunnerCache(max_resident=len(sizes) + 1)
 

@@ -47,6 +47,7 @@ travels as floats, which could quiet NaN payloads.
 from __future__ import annotations
 
 import functools
+import os
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Any
@@ -60,15 +61,40 @@ from repro_torch.crypto.ctr import WORD, words_for
 from repro_torch.device import device_constant
 from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_rows
 from repro_torch.kernels.chacha20.table import BlockTable, block_table
+from repro_torch.perf.model import recommendation
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
+COALESCE_ENV = "REPRO_SHUFFLE_COALESCE"
+_COALESCE_TRUE = ("1", "true", "yes", "on")
+_COALESCE_FALSE = ("0", "false", "no", "off")
+
+
 def resolve_coalesce(coalesce="auto") -> bool:
-    """Resolve a coalesce selector: a bool wins; 'auto'/None is the packed wire."""
+    """Resolve a coalesce selector to a concrete bool.
+
+    An explicit bool always wins; 'auto'/None defers to
+    $REPRO_SHUFFLE_COALESCE, then to the calibrated cost model when one is
+    active (`repro_torch.perf.model`), then to the default True (the packed
+    wire). An unparseable environment value raises, naming the variable.
+    The driver resolves it once per runner, never per round.
+    """
     if isinstance(coalesce, (bool, np.bool_)):
         return bool(coalesce)
     if coalesce in (None, "auto"):
-        return True
+        env_val = os.environ.get(COALESCE_ENV)
+        if env_val is None:
+            rec = recommendation("coalesce")
+            return True if rec is None else bool(rec)
+        val = env_val.strip().lower()
+        if val in _COALESCE_TRUE:
+            return True
+        if val in _COALESCE_FALSE:
+            return False
+        raise ValueError(
+            f"invalid ${COALESCE_ENV}={env_val!r} in the environment: "
+            f"must be one of {_COALESCE_TRUE + _COALESCE_FALSE} "
+            f"(unset ${COALESCE_ENV} to use the default coalesced wire)")
     raise ValueError(f"coalesce must be a bool or 'auto', got {coalesce!r}")
 
 

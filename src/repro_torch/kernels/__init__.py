@@ -4,13 +4,19 @@
 values are 'auto' (the tensor's device decides: the kernel for a CUDA
 tensor, the plain version for a CPU tensor) and 'torch' (the plain version,
 refused for a CUDA tensor, where the kernel is the only route).
+
+`kernel_calls` counts calls of the kernels' dispatch points, kernel or plain
+version alike (`repro_torch.tools.opcount`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.tools.opcount import CallCounter
+
 IMPLS = ("auto", "torch")
+kernel_calls = CallCounter()
 
 
 def uses_kernel(impl: str, t: torch.Tensor) -> bool:

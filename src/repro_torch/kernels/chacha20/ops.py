@@ -29,7 +29,7 @@ import torch
 from repro_torch.crypto import ctr as _ctr
 from repro_torch.crypto.chacha import CONSTANT_WORDS, as_u32, to_word_bits
 from repro_torch.device import device_constant, resolve_device
-from repro_torch.kernels import uses_kernel
+from repro_torch.kernels import kernel_calls, uses_kernel
 from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda
 from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
 from repro_torch.kernels.chacha20.table import block_table, host_u32, row_table
@@ -60,6 +60,7 @@ def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, c
     as u32 bits, any other integer masked to 32 bits) is XORed into nonce
     word 1 on the device.
     """
+    kernel_calls.note("chacha20_xor_packed")
     dev = x.device
     nonce_ids, ctr_rows = ids_on(nonce_ids, dev), ids_on(ctr_rows, dev)
     if round_dev is not None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import uses_kernel
+from repro_torch.kernels import kernel_calls, uses_kernel
 from repro_torch.kernels.kmeans.kernel import kmeans_assign_cuda
 from repro_torch.kernels.kmeans.ref import kmeans_assign_ref
 
@@ -22,6 +22,7 @@ def kmeans_assign(points, centers, weights=None, *, impl: str = "auto"):
     """assign (…, N) int32, sums (…, K, D) f32, counts (…, K) f32."""
     if points.dim() not in (2, 3):
         raise ValueError(f"points must be (N, D) or (S, N, D), got {tuple(points.shape)}")
+    kernel_calls.note("kmeans_assign")
     if weights is None:
         weights = torch.ones(points.shape[:-1], dtype=torch.float32, device=points.device)
     if not uses_kernel(impl, points):

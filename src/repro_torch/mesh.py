@@ -18,6 +18,9 @@ A replicated value (JAX's `P()`) is held once, without the shard dimension,
 and broadcasts against per-shard tensors. Spec functions are written against
 this interface only, so a `torch.distributed` backend can sit behind the
 same methods later.
+
+Each collective reports its call to `collective_calls` under the
+reference's primitive name (`repro_torch.tools.opcount` counts them).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tools.opcount import CallCounter
+
+collective_calls = CallCounter()
 
 
 class VirtualMesh:
@@ -61,6 +67,7 @@ class VirtualMesh:
         The order is fixed so that the result is identical from run to run
         (no atomics, no data-dependent reduction tree).
         """
+        collective_calls.note("psum")
         total = x[0]
         for s in range(1, x.shape[0]):
             total = total + x[s]
@@ -69,12 +76,14 @@ class VirtualMesh:
     def all_gather(self, x: torch.Tensor, tiled: bool = False) -> torch.Tensor:
         """(S, n, ...) -> every shard's view of all shards: (S, S, n, ...),
         or (S, S * n, ...) with `tiled=True`, as JAX's `lax.all_gather`."""
+        collective_calls.note("all_gather")
         s = x.shape[0]
         g = x.unsqueeze(0).expand((s,) + tuple(x.shape))
         return g.reshape((s, -1) + tuple(x.shape[2:])) if tiled else g
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Tiled all_to_all over the rows of an (S, R, ...) buffer, R == S."""
+        collective_calls.note("all_to_all")
         if x.shape[1] != x.shape[0]:
             raise ValueError(
                 f"all_to_all needs one row per shard, got shape {tuple(x.shape)}")

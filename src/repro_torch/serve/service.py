@@ -36,9 +36,12 @@ what a job needs to run its rounds from cached CUDA graphs:
     and each job draws from a disjoint keystream range -- admission gives it
     a round BASE from a monotone counter advanced by its `max_rounds`.
 
-Differences from the reference: the growth factor and the residency cap are
-explicit arguments or defaults (no environment variable, no calibrated cost
-model yet); the cache reports graph captures where the reference counts XLA
+The growth factor and the residency cap resolve as the reference's do:
+an explicit argument, else $REPRO_BUCKET_GROWTH / $REPRO_SERVICE_MAX_RUNNERS,
+else the calibrated cost model (`repro_torch.perf.model`), else 2.0 and
+unbounded; a sort job's capacity is the model's `sort_capacity` answer, else
+the bucket's lossless worst case. Each is resolved once per service, cache
+or job. The cache reports graph captures where the reference counts XLA
 compiles.
 
 Keystream reuse. A fresh service starts its round bases at 0, as the
@@ -52,6 +55,7 @@ then `repro_torch.convert.secure_config` on the session's key).
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 from collections import OrderedDict, deque
@@ -66,32 +70,74 @@ from repro_torch.core.grep import make_grep_spec
 from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
 from repro_torch.core.shuffle import SecureShuffleConfig, resolve_coalesce
 from repro_torch.core.sort import make_sample_sort_spec
+from repro_torch.perf.model import recommendation
+
+BUCKET_GROWTH_ENV = "REPRO_BUCKET_GROWTH"
+MAX_RUNNERS_ENV = "REPRO_SERVICE_MAX_RUNNERS"
 
 
 def resolve_bucket_growth(growth=None) -> float:
-    """The bucket ladder's growth factor: an explicit number > 1, or 2.0 for
-    None/'auto'."""
+    """Resolve the geometric bucket-ladder growth factor (a float > 1).
+
+    None/'auto' defers to $REPRO_BUCKET_GROWTH, then to the calibrated cost
+    model when one is active (the factor minimizing AdmissionSim makespan
+    under the calibrated TimingModel), then to the default 2.0; an explicit
+    number always wins over the environment.
+    """
+    from_env = False
     if growth in (None, "auto"):
-        return 2.0
+        env_val = os.environ.get(BUCKET_GROWTH_ENV)
+        if env_val is None:
+            rec = recommendation("bucket_growth")
+            if rec is None:
+                return 2.0
+            growth = rec
+        else:
+            growth, from_env = env_val.strip(), True
     try:
         val = float(growth)
     except (TypeError, ValueError):
         val = float("nan")
     if not val > 1.0:
+        if from_env:
+            raise ValueError(
+                f"invalid ${BUCKET_GROWTH_ENV}={growth!r} in the environment: "
+                f"bucket growth must be a number > 1 "
+                f"(unset ${BUCKET_GROWTH_ENV} to use the default 2.0)")
         raise ValueError(f"bucket growth must be a number > 1 or 'auto', got {growth!r}")
     return val
 
 
 def resolve_max_resident(limit="auto") -> int | None:
-    """The runner cache's residency cap: an int >= 1, or None (unbounded) for
-    'auto', None, 0, 'none' or 'unbounded'."""
-    if limit in ("auto", None, "none", "unbounded", "0", 0):
+    """Resolve the runner-cache residency cap (int >= 1, or None = unbounded).
+
+    'auto' defers to $REPRO_SERVICE_MAX_RUNNERS, then to the calibrated cost
+    model when one is active (which answers 'unbounded'), then to the
+    default unbounded; 0, 'none' and 'unbounded' mean unbounded explicitly,
+    and an explicit int or None always wins over the environment.
+    """
+    from_env = False
+    if limit == "auto":
+        env_val = os.environ.get(MAX_RUNNERS_ENV)
+        if env_val is None:
+            rec = recommendation("max_resident")
+            if rec is None or rec == "unbounded":
+                return None
+            limit = rec
+        else:
+            limit, from_env = env_val.strip().lower(), True
+    if limit is None or limit in ("none", "unbounded", "0", 0):
         return None
     try:
         val = int(limit)
     except (TypeError, ValueError):
         val = 0
     if val < 1:
+        if from_env:
+            raise ValueError(
+                f"invalid ${MAX_RUNNERS_ENV}={limit!r} in the environment: "
+                f"the resident-runner cap must be an integer >= 1, or 0/'none' for "
+                f"unbounded (unset ${MAX_RUNNERS_ENV} to use the default unbounded)")
         raise ValueError(f"max_resident must be an integer >= 1, None, or 'auto', "
                          f"got {limit!r}")
     return val
@@ -593,7 +639,7 @@ class SecureJobService:
         carried state (`dynamic_total=True`) so the lossless and balanced
         halt reads the REAL size at run time; padding up to the bucket is
         +inf, never shuffled. Per-(source, destination) capacity defaults to
-        the bucket's lossless worst case.
+        the calibrated model's answer, else the bucket's lossless worst case.
         """
         shape = _shape_of(values)
         if len(shape) != 1 or shape[0] < 1:
@@ -602,7 +648,8 @@ class SecureJobService:
         r = self.n_shards
         bucket = bucket_for(n, multiple=r, growth=self.bucket_growth)
         if capacity is None:
-            capacity = bucket // r
+            rec = recommendation("sort_capacity", bucket=bucket, n_shards=r)
+            capacity = bucket // r if rec is None else int(rec)
         spec_id = ("sort", r, capacity, float(balance), self.state_mode, bucket)
         min_chunk = self.min_chunk if min_chunk is None else min_chunk
         max_chunk = self.max_chunk if max_chunk is None else max_chunk

@@ -243,11 +243,15 @@ def _dummy_spec(**kw):
 
 
 def test_resolve_state_mode_ignores_environment(monkeypatch):
+    # an explicit mode ignores $REPRO_STATE_SPECS; 'auto' follows it, as the
+    # reference's does, and is 'sharded' without it
     monkeypatch.setenv("REPRO_STATE_SPECS", "replicated")
-    assert tdrv.resolve_state_mode("auto") == "sharded"
-    assert tdrv.resolve_state_mode(None) == "sharded"
     assert tdrv.resolve_state_mode("replicated") == "replicated"
     assert tdrv.resolve_state_mode("sharded") == "sharded"
+    assert tdrv.resolve_state_mode("auto") == tdrv.resolve_state_mode(None) == "replicated"
+    monkeypatch.delenv("REPRO_STATE_SPECS")
+    assert tdrv.resolve_state_mode("auto") == "sharded"
+    assert tdrv.resolve_state_mode(None) == "sharded"
     with pytest.raises(ValueError, match="carried-state mode"):
         tdrv.resolve_state_mode("sideways")
 

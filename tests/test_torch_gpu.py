@@ -404,11 +404,13 @@ def test_round_syncs_only_at_the_halt_read(cuda, workload):
                 "sorted": torch.full((s, s * 64), torch.inf), "counts": torch.zeros(s)}
     sec = _cfg()
     inp, state, layout = driver._place(spec, mesh, inputs, init)
-    driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout)  # warm
+    driver._round(spec, mesh, inp, state, 0, sec, None, {}, layout,
+                  capacity_factor=2.0)  # warm
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        st, aux, _ = driver._round(spec, mesh, inp, state, 1, sec, None, {}, layout)
+        st, aux, _ = driver._round(spec, mesh, inp, state, 1, sec, None, {}, layout,
+                                   capacity_factor=2.0)
         flag = spec.halt_fn(layout.for_halt(st), aux, 1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -972,3 +974,118 @@ def test_ctr_encrypt_array_on_the_card_is_one_kernel_launch(cuda, dtype, shape):
         torch.cuda.set_sync_debug_mode(0)
     assert kernel.launches == before + (2 if x.numel() else 0)
     assert torch.equal(dev_ctr.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+# --- the calibrated cost model on the card ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_calibration():
+    """One quick calibration on 8 virtual shards of the card, for the tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the calibration probes the card)")
+    from repro_torch import VirtualMesh
+    from repro_torch.perf.calibrate import run_calibration
+
+    return run_calibration(VirtualMesh(8, torch.device("cuda")), quick=True)
+
+
+@pytest.mark.gpu
+def test_quick_calibration_on_the_card(cuda, card_calibration):
+    """Finite constants >= 0 under the card's key, the probes' capture
+    seconds > 0 (a cold graph runner warms up and captures), and each probe
+    round's device operations counted."""
+    cal = card_calibration
+    assert cal.key == f"torch-cuda/{torch.cuda.device_count()}" and cal.n_shards == 8
+    (entry,) = cal.chacha.values()
+    assert list(cal.chacha) == ["auto"] and entry["resolved"] == ["cuda", False]
+    for v in (entry["us_per_block"], entry["launch_us"], cal.all_to_all["us_per_byte"],
+              cal.all_to_all["base_us"], cal.dispatch["base_us"], cal.round["us_per_item"],
+              cal.round["base_us"], cal.compile["s_per_eqn"], cal.compile["base_s"]):
+        assert np.isfinite(v) and v >= 0
+    assert entry["compile_s"] > 0 and cal.round["compile_s"] > 0
+    assert cal.compile["s_per_eqn"] > 0 or cal.compile["base_s"] > 0
+    assert entry["compile_eqns"] > cal.round["compile_eqns"] > 0
+
+
+_KNOB_ENVS = ("REPRO_SHUFFLE_COALESCE", "REPRO_CHUNK_GROWTH", "REPRO_STATE_SPECS",
+              "REPRO_BUCKET_GROWTH", "REPRO_SERVICE_MAX_RUNNERS", "REPRO_CALIBRATION")
+
+
+@pytest.mark.gpu
+def test_resolvers_follow_the_card_calibration(cuda, card_calibration, monkeypatch):
+    from repro_torch.core import driver, shuffle
+    from repro_torch.perf.model import CostModel, clear_active_model, set_active_model
+    from repro_torch.serve import service
+
+    for var in _KNOB_ENVS:
+        monkeypatch.delenv(var, raising=False)
+    model = CostModel(card_calibration)
+    set_active_model(model)
+    try:
+        assert shuffle.resolve_coalesce("auto") is model.recommend("coalesce") is True
+        assert driver.resolve_chunk_growth("auto") == model.recommend(
+            "chunk_growth", min_chunk=1, max_rounds=64, max_chunk=None)
+        assert driver.resolve_capacity_factor() == 2.0  # no measured skew in the probes
+        assert service.resolve_bucket_growth() == model.recommend("bucket_growth")
+        assert service.resolve_max_resident("auto") is None
+        assert model.recommend("chacha_impl") == "auto"
+    finally:
+        clear_active_model()
+    assert driver.resolve_chunk_growth("auto") == 2 and service.resolve_bucket_growth() == 2.0
+
+
+@pytest.mark.gpu
+def test_warm_served_kmeans_chunk_resolves_no_knob(cuda, card_calibration, monkeypatch):
+    """A warm 2-round chunk of a served k-means runner, with a calibration
+    active, makes 14 host launch calls (7 a round, as without one), and still
+    runs with every knob variable invalid and a model that raises: the graph
+    replays resolve nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.perf.model import CostModel, clear_active_model, set_active_model
+    from repro_torch.serve import RunnerCache, SecureJobService
+
+    class Raising:
+        def recommend(self, knob, **ctx):
+            raise AssertionError(f"knob {knob!r} resolved in a warm chunk")
+
+    host_calls = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                  "cudaMemsetAsync")
+    s, n, k, d = 8, 65536, 16, 8
+    pts, _ = generate_points(n, k, d=d, seed=3)
+    mesh = VirtualMesh(s, cuda)
+    cache = RunnerCache()
+    for var in _KNOB_ENVS:
+        monkeypatch.delenv(var, raising=False)
+    set_active_model(CostModel(card_calibration))
+    try:
+        with SecureJobService(mesh, secure=_cfg(), cache=cache, min_chunk=2, max_chunk=2,
+                              bucket_growth=2.0) as svc:  # bucket n, whatever the model says
+            svc.submit_kmeans(pts, k, max_rounds=4).result(timeout=600)
+        runner = cache.view(spec_id=("kmeans", k, d, "auto", n), mesh=mesh,
+                            secure=_cfg()).get_or_build(2, lambda: None)
+        assert isinstance(runner, driver._GraphRunner)
+        points = torch.from_numpy(pts).to(cuda)
+        inputs = {"p": points, "w": torch.ones(n, device=cuda)}
+        init = {"c": points[:k].clone(), "thr": torch.zeros((), device=cuda)}  # never halts
+        runner(inputs, init, 0)  # copies these inputs in: later calls copy the state only
+        counts = []
+        for poisoned in (False, True):
+            if poisoned:
+                set_active_model(Raising())
+                for var in _KNOB_ENVS[:-1]:
+                    monkeypatch.setenv(var, "sideways")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = runner(inputs, init, 0)
+                torch.cuda.synchronize()
+            assert out[3] == 2
+            counts.append(sum(any(e.name.startswith(c) for c in host_calls)
+                              for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CPU))
+    finally:
+        clear_active_model()
+    assert counts == [14, 14]

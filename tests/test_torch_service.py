@@ -101,14 +101,21 @@ def test_bucket_ladder_properties():
 
 
 def test_resolvers_take_explicit_values_and_read_no_environment(monkeypatch):
+    # explicit values read no environment; 'auto' follows it, as the
+    # reference's does (tests/test_torch_costmodel.py holds the whole order)
     monkeypatch.setenv(jsvc.BUCKET_GROWTH_ENV, "1.25")
     monkeypatch.setenv(jsvc.MAX_RUNNERS_ENV, "2")
-    assert resolve_bucket_growth() == resolve_bucket_growth("auto") == 2.0
     assert resolve_bucket_growth(1.5) == 1.5
-    assert resolve_max_resident("auto") is None and resolve_max_resident(None) is None
+    assert resolve_max_resident(None) is None
     assert resolve_max_resident(3) == 3
     for unbounded in ("none", "0", 0, "unbounded"):
         assert resolve_max_resident(unbounded) is None
+    assert resolve_bucket_growth() == resolve_bucket_growth("auto") == 1.25
+    assert resolve_max_resident("auto") == 2
+    monkeypatch.delenv(jsvc.BUCKET_GROWTH_ENV)
+    monkeypatch.delenv(jsvc.MAX_RUNNERS_ENV)
+    assert resolve_bucket_growth() == resolve_bucket_growth("auto") == 2.0
+    assert resolve_max_resident("auto") is None
     for bad in (1.0, 0.5, "spam"):
         with pytest.raises(ValueError, match="bucket growth"):
             resolve_bucket_growth(bad)

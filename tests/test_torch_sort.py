@@ -349,8 +349,11 @@ def test_sort_spec_state_specs_follow_shard_state(monkeypatch):
     assert ts.make_sample_sort_spec(mesh, 4, shard_state=True).state_specs["sorted"] == tdrv.P("data")
     assert ts.make_sample_sort_spec(mesh, 4, shard_state=False).state_specs["sorted"] == tdrv.P()
     assert ts.make_sample_sort_spec(mesh, 4, shard_state="replicated").state_specs["sorted"] == tdrv.P()
-    # 'auto' is the reference's default, 'sharded'; the port reads no environment
+    # 'auto' follows $REPRO_STATE_SPECS, as the reference's does; without it
+    # the reference's default, 'sharded'
     monkeypatch.setenv("REPRO_STATE_SPECS", "replicated")
+    assert ts.make_sample_sort_spec(mesh, 4).state_specs["sorted"] == tdrv.P()
+    monkeypatch.delenv("REPRO_STATE_SPECS")
     auto = ts.make_sample_sort_spec(mesh, 4)
     assert auto.state_specs["sorted"] == tdrv.P("data")
     assert auto.state_specs["edges"] == auto.state_specs["counts"] == tdrv.P()

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs thirteen phases, each printing one JSON line, and a fourteenth line:
+then runs fourteen phases, each printing one JSON line, and a fifteenth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -103,6 +103,22 @@ then runs thirteen phases, each printing one JSON line, and a fourteenth line:
                  calibration (best vector, resolver vector); the kernels'
                  launches on this path (ChaCha > 0 from the secure probes and
                  traces, k-means >= 1 from the k-means trace)
+  lm_serve       LM serving of granite-moe-3b-a800m at its published config
+                 (32 layers, d_model 1536, 40 experts top-8, bf16, seeded
+                 weights) with its experts on 8 virtual shards: a secure
+                 prefill of 8 x 4096 tokens (the batch cut to 4 past 60 GB of
+                 peak memory), its expert exchanges ChaCha20-encrypted
+                 (asserted: 4 kernel launches a layer, 128 a prefill), plain
+                 and secure prefills in turns (logits and KV cache equal bit
+                 for bit), 64 sampled decode steps (no ChaCha launch, logits
+                 finite); parameter and KV-cache bytes, prefill ms, prompt
+                 tokens/s, secure over plain, decode ms per step and tokens/s,
+                 a profiled decode step's idle share and device operations,
+                 peak memory, wire bytes per prefill, the kernel on one leg's
+                 wire (== plain version bit for bit) against its bytes bound,
+                 the prefill's operations bound and the decode step's bytes
+                 bound; the reduced model on 4 shards, secure, card == CPU
+                 within 1e-3
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
@@ -110,7 +126,7 @@ then runs thirteen phases, each printing one JSON line, and a fourteenth line:
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
-                 calibrate; k-means: k-means, calibrate), each counted from 0
+                 calibrate, lm_serve; k-means: k-means, calibrate), each counted from 0
                  just before that
                  path's run, and on the serve path (by profiler: replayed
                  graphs bypass the wrappers' counters); the k-means kernel's
@@ -1370,6 +1386,232 @@ def phase_enclave(dev):
     return res
 
 
+
+# lm_serve: granite-moe-3b-a800m at its published config, experts on 8 shards
+LM_ARCH, LM_SHARDS, LM_BATCH, LM_PROMPT, LM_DECODE, LM_SEED = (
+    "granite-moe-3b-a800m", 8, 8, 4096, 64, 0)
+LM_PEAK_LIMIT = 60e9  # past it the batch is cut to 4
+LM_SMALL_SHARDS, LM_SMALL_TOL = 4, 1e-3  # reduced config, card == CPU within rtol/atol
+PEAK_BF16_S = 989e12  # H100 SXM bf16 tensor cores, dense
+
+
+def lm_prefill_flops(cfg, b: int, t: int, n_shards: int) -> dict:
+    """Operations of one prefill as the port computes them: every projection
+    (q, k, v, o, router), the experts over their capacity-padded slots, the
+    full (unmasked) score and context products of the query-chunked
+    attention, and the last token's unembedding; 2 per multiply-add."""
+    from repro_torch.models.moe import _capacity, padded_experts
+
+    n, d, dh = b * t, cfg.d_model, cfg.head_dim
+    e_pad = padded_experts(cfg, n_shards)
+    cap = _capacity(cfg, n // n_shards, e_pad)
+    proj = 2 * n * d * (2 * cfg.n_heads * dh + 2 * cfg.n_kv_heads * dh + e_pad)
+    experts = 2 * 3 * n_shards * e_pad * cap * d * (cfg.moe_d_ff or cfg.d_ff)
+    scores = 2 * 2 * b * cfg.n_heads * t * t * dh
+    per_layer = {"projections": proj, "experts": experts, "attention": scores}
+    out = {k: v * cfg.n_layers for k, v in per_layer.items()}
+    out["unembed"] = 2 * b * d * cfg.padded_vocab
+    out["total"] = sum(out.values())
+    return out
+
+
+def lm_decode_bytes(model, cfg, b: int, kv_len: int) -> int:
+    """Bytes one decode step must move: every weight once (the replicated
+    dispatch runs every expert; the embedding table is read by the
+    unembedding), the K/V of the kv_len positions it attends, the new K/V
+    written, the float32 logits written."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv_row = cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim * 2 * 2  # k and v, bf16
+    return weights + kv_row * (kv_len + 1) + b * cfg.padded_vocab * 4
+
+
+def lm_small_on_card_and_cpu(dev):
+    """Reduced granite-moe on 4 virtual shards, secure: one seeded model and
+    prompt, prefill and two decode steps on the card and on the CPU (plain
+    versions); the largest difference of each logits set."""
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    cfg = get_config(LM_ARCH).reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(3), LM_SMALL_SHARDS, "cpu")
+    card_model = LM(cfg, LM_SMALL_SHARDS, dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    outs = {}
+    for name, model, device in (("card", card_model, dev), ("cpu", cpu_model, "cpu")):
+        mesh = VirtualMesh(LM_SMALL_SHARDS, device)
+        cache = init_cache(cfg, 2, 24, device)
+        t = toks.to(device)
+        got = [prefill(cfg, model, t[:, :16], cache, mesh=mesh, secure_moe=_secure_cfg())]
+        for i in (16, 17):
+            got.append(decode_step(cfg, model, cache, t[:, i:i + 1], mesh=mesh))
+        outs[name] = [g.float().cpu() for g in got]
+    diffs = []
+    for a, b in zip(outs["card"], outs["cpu"]):
+        check(torch.allclose(a, b, rtol=LM_SMALL_TOL, atol=LM_SMALL_TOL),
+              f"lm_serve: card != CPU on the reduced model (max diff {float((a - b).abs().max())})")
+        diffs.append(float((a - b).abs().max()))
+    return {"arch": cfg.name + " (reduced)", "shards": LM_SMALL_SHARDS, "secure": True,
+            "steps": ["prefill", "decode", "decode"], "max_abs_diff": diffs,
+            "tolerance": LM_SMALL_TOL}
+
+
+def phase_lm_serve(dev):
+    """LM serving of granite-moe-3b-a800m at its published config (32 layers,
+    d_model 1536, 40 experts top-8, vocab 49155), bf16 compute, weights from
+    a seeded generator, the experts on 8 virtual shards: a secure prefill of
+    8 x 4096 tokens (query-chunked attention, two chunks of 2048) whose
+    expert exchanges are encrypted by the ChaCha20 kernel, plain and secure
+    prefills in turns, then 64 sampled decode steps. Asserts: 4 ChaCha
+    launches a layer per secure prefill and none in decode, secure logits
+    and KV cache == plain bit for bit, every logit finite, the kernel ==
+    its plain version bit for bit on this wire, and the reduced model on 4
+    shards card == CPU within LM_SMALL_TOL."""
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.moe import _capacity, padded_experts
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+    from repro_torch.serve_lm import sample
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.n_experts_per_tok, cfg.vocab_size)
+          == (32, 1536, 40, 8, 49155), "lm_serve: not the published granite-moe config")
+    mesh = VirtualMesh(LM_SHARDS, dev)
+    sec = _secure_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    (model, init_s) = timed(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(LM_SEED), LM_SHARDS, dev))
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch, batch_cut = LM_BATCH, None
+    smax = LM_PROMPT + LM_DECODE + 2
+
+    def setup(b):
+        g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+        toks = torch.randint(0, cfg.vocab_size, (b, LM_PROMPT), generator=g, device=dev,
+                             dtype=torch.int32)
+        return g, toks, init_cache(cfg, b, smax, dev)
+
+    def run_prefill(secure):
+        return prefill(cfg, model, prompts, cache, mesh=mesh, secure_moe=secure)
+
+    gen, prompts, cache = setup(batch)
+    torch.cuda.synchronize()
+    ck.launches = 0
+    with record_wire_bytes() as recs:
+        lg_secure, first_s = timed(lambda: run_prefill(sec))
+    launches = ck.launches
+    if torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
+        batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
+        batch = 4
+        del cache, prompts, lg_secure
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen, prompts, cache = setup(batch)
+        ck.launches = 0
+        with record_wire_bytes() as recs:
+            lg_secure, first_s = timed(lambda: run_prefill(sec))
+        launches = ck.launches
+    check(launches == 4 * cfg.n_layers,
+          f"lm_serve: {launches} ChaCha launches in a secure prefill, not {4 * cfg.n_layers}")
+    check(len(recs) == 2 * cfg.n_layers and all(r["secure"] for r in recs),
+          f"lm_serve: {len(recs)} wire records in a secure prefill")
+    kv_secure = cache["k"].clone()
+    times = {"plain": [], "secure": []}
+    for name in ("plain", "secure", "secure", "plain"):
+        lg, s = timed(lambda: run_prefill(sec if name == "secure" else None))
+        times[name].append(s)
+        check(torch.equal(lg, lg_secure), f"lm_serve: {name} prefill logits != the first "
+              "secure prefill's, bit for bit")
+    check(torch.equal(cache["k"], kv_secure), "lm_serve: plain KV cache != secure KV cache")
+    del kv_secure
+    pre_prof, pre_busy_ms, pre_top = _profiled(lambda: timed(lambda: run_prefill(sec)))
+    check(torch.equal(pre_prof[0], lg_secure), "lm_serve: profiled prefill logits differ")
+    check(bool(torch.isfinite(lg_secure[:, :cfg.vocab_size]).all()),
+          "lm_serve: non-finite prefill logits")
+    prefill_s = min(times["secure"])
+
+    # 64 sampled decode steps from the prompt's cache
+    ck.launches = 0
+    torch.cuda.synchronize()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    lg = lg_secure
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        nxt = sample(lg, cfg.vocab_size, 0.8, gen)
+        lg = decode_step(cfg, model, cache, nxt, mesh=mesh)
+        finite &= torch.isfinite(lg[:, :cfg.vocab_size]).all()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(finite), "lm_serve: non-finite decode logits")
+    check(ck.launches == 0, f"lm_serve: {ck.launches} ChaCha launches in decode")
+    nxt = sample(lg, cfg.vocab_size, 0.8, gen)
+    kv_len = int(cache["pos"][0])
+    prof, busy_ms, top = _profiled(lambda: timed(lambda: decode_step(cfg, model, cache, nxt,
+                                                                     mesh=mesh)))
+    _, events = _device_events(lambda: decode_step(cfg, model, cache, nxt, mesh=mesh))
+    peak = torch.cuda.max_memory_allocated()
+    flops = lm_prefill_flops(cfg, batch, LM_PROMPT, LM_SHARDS)
+    dec_bytes = lm_decode_bytes(model, cfg, batch, kv_len)
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    del cache, model, lg, lg_secure
+    torch.cuda.empty_cache()
+
+    # the ChaCha kernel on this wire: one leg's send buffers, seeded random bf16 bits
+    e_pad = padded_experts(cfg, LM_SHARDS)
+    cap = _capacity(cfg, batch * LM_PROMPT // LM_SHARDS, e_pad)
+    g = torch.Generator(device=dev).manual_seed(17)
+    send = torch.randint(-2**15, 2**15, (LM_SHARDS, LM_SHARDS, e_pad // LM_SHARDS * cap,
+                                         cfg.d_model),
+                         dtype=torch.int16, device=dev, generator=g).view(torch.bfloat16)
+    crypt = wire_crypt(dev, {"x": send}, 5, 0)
+    del send
+    leg_bytes = recs[0]["wire_bytes"] * LM_SHARDS
+    check(crypt["wire_bytes"] == leg_bytes, "lm_serve: the timed wire is not a leg's wire")
+    small = lm_small_on_card_and_cpu(dev)
+    res = {"phase": "lm_serve", "arch": cfg.name, "config": "full (published)",
+           "dtype": cfg.dtype, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": cfg.n_experts, "top_k": cfg.n_experts_per_tok, "shards": LM_SHARDS,
+           "batch": batch, "batch_cut": batch_cut, "prompt_tokens": LM_PROMPT,
+           "decode_steps": LM_DECODE, "capacity_per_expert": cap,
+           "param_bytes": param_bytes, "kv_cache_bytes": kv_bytes, "init_s": init_s,
+           "first_secure_prefill_s": first_s,
+           "prefill_ms": 1e3 * prefill_s, "plain_prefill_ms": 1e3 * min(times["plain"]),
+           "prefill_s_runs": times,
+           "prompt_tokens_per_s": batch * LM_PROMPT / prefill_s,
+           "secure_over_plain": prefill_s / min(times["plain"]),
+           "profiled_prefill_ms": 1e3 * pre_prof[1], "prefill_device_busy_ms": pre_busy_ms,
+           "prefill_device_idle_share": None if pre_busy_ms is None
+           else 1 - pre_busy_ms / (1e3 * pre_prof[1]),
+           "prefill_top_device_ops": pre_top,
+           "prefill_flops": flops, "prefill_bound_ms": 1e3 * flops["total"] / PEAK_BF16_S,
+           "prefill_bound_by": "operations",
+           "decode_ms_per_step": 1e3 * decode_s / LM_DECODE,
+           "decode_tokens_per_s": batch * LM_DECODE / decode_s,
+           "decode_step_bytes": dec_bytes, "decode_bound_ms": 1e3 * dec_bytes / PEAK_BYTES_S,
+           "decode_bound_by": "bytes", "decode_kv_len": kv_len,
+           "profiled_decode_step_ms": 1e3 * prof[1], "decode_device_busy_ms": busy_ms,
+           "decode_device_idle_share": None if busy_ms is None else 1 - busy_ms / (1e3 * prof[1]),
+           "decode_idle_share_of_unprofiled_step": None if busy_ms is None
+           else 1 - busy_ms * LM_DECODE / (1e3 * decode_s),
+           "decode_device_ops": len(events), "decode_top_device_ops": top,
+           "peak_memory_bytes": peak,
+           "wire_bytes_per_prefill": sum(r["wire_bytes"] for r in recs) * LM_SHARDS,
+           "wire_bytes_per_leg": leg_bytes,
+           "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
+           "chacha": crypt, "secure_equals_plain": True, "logits_finite": True,
+           "reduced_card_vs_cpu": small, "launches": {"chacha20": launches},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
 SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
@@ -1776,6 +2018,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     enc = phase_enclave(dev)
     freed["enclave"] = collect_garbage()
+    torch.cuda.empty_cache()
+    lm = phase_lm_serve(dev)
+    freed["lm_serve"] = collect_garbage()
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -1783,7 +2028,8 @@ def main(argv=None) -> int:
     by_path = {"kmeans": fit["launches"]["chacha20"], "sort": srt["launches"]["chacha20"],
                "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"],
                "enclave": enc["launches"]["chacha20"],
-               "calibrate": cal["launches"]["chacha20"]}
+               "calibrate": cal["launches"]["chacha20"],
+               "lm_serve": lm["launches"]["chacha20"]}
     check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
@@ -1803,6 +2049,9 @@ def main(argv=None) -> int:
          "bound_ms_sort_wire": srt["chacha"]["bound_ms"], "lanes_sort_wire": srt["chacha"]["lanes"],
          "ms_grep_wire": grp["chacha"]["kernel_ms"],
          "bound_ms_grep_wire": grp["chacha"]["bound_ms"], "lanes_grep_wire": grp["chacha"]["lanes"],
+         "ms_lm_serve_wire": lm["chacha"]["kernel_ms"],
+         "bound_ms_lm_serve_wire": lm["chacha"]["bound_ms"],
+         "lanes_lm_serve_wire": lm["chacha"]["lanes"],
          "ms_wordcount_wire": wc["chacha"]["kernel_ms"],
          "bound_ms_wordcount_wire": wc["chacha"]["bound_ms"],
          "lanes_wordcount_wire": wc["chacha"]["lanes"],

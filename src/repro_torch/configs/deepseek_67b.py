@@ -1,0 +1,19 @@
+"""deepseek-67b — [arXiv:2401.02954; hf]. llama-arch.
+
+95L d_model=8192 64H (GQA kv=8) d_ff=22016 vocab=102400.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-67b",
+    family="dense",
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22016,
+    vocab_size=102400,
+    attn_chunk=1024,
+    source="arXiv:2401.02954; hf",
+)

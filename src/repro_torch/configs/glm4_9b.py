@@ -1,0 +1,19 @@
+"""glm4-9b — [hf:THUDM/glm-4-9b; hf]. RoPE, GQA kv=2.
+
+40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="glm4-9b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=2,
+    d_ff=13696,
+    vocab_size=151552,
+    attn_chunk=2048,
+    source="hf:THUDM/glm-4-9b; hf",
+)

@@ -1,9 +1,10 @@
 """Carry the JAX side's numpy material over to the port.
 
-The port has no weights; what crosses over is session key material and
-data. These helpers turn numpy values (as the JAX package holds or returns
-them) into the port's objects on a given device, so both packages compute
-on identical inputs.
+What crosses over is session key material, data and LM weights. These
+helpers turn numpy values (as the JAX package holds or returns them) into
+the port's objects on a given device, so both packages compute on identical
+inputs. `lm_params` turns the reference's `init_params` tree into the port
+model's `state_dict`.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.core.shuffle import SecureShuffleConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import check_family
+from repro_torch.models.moe import padded_experts
 from repro_torch.tree import tree_map
 
 
@@ -46,3 +49,38 @@ def to_numpy(x: torch.Tensor) -> np.ndarray:
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(np.uint16)
     return x.numpy()
+
+
+def _named_leaves(tree, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _named_leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def lm_params(cfg, np_params, n_model: int = 1) -> dict:
+    """The port model's `state_dict` (CPU tensors, the reference's dtypes)
+    from the reference's `init_params(cfg, key, n_model)` tree with numpy
+    leaves: the stacked `layers` leaves (L, ...) are sliced into
+    `layers.<i>.*`, everything else keeps its path. Load it with
+    `LM(cfg, n_model, device).load_state_dict(...)`, which casts each
+    matrix into the model's compute dtype."""
+    check_family(cfg)
+    out = {}
+    for name, leaf in _named_leaves(np_params):
+        a = np.asarray(leaf)
+        if name.startswith("layers."):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {a.shape[0]} stacked layers, config has "
+                                 f"{cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                out[f"layers.{i}.{name[len('layers.'):]}"] = to_tensor(np.array(a[i]), "cpu")
+        else:
+            out[name] = to_tensor(np.array(a), "cpu")
+    if cfg.family == "moe":
+        e = out["layers.0.moe.wi"].shape[0]
+        if e != padded_experts(cfg, n_model):
+            raise ValueError(f"{e} experts in the tree, {padded_experts(cfg, n_model)} "
+                             f"for n_model={n_model}")
+    return out

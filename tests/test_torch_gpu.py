@@ -1089,3 +1089,72 @@ def test_warm_served_kmeans_chunk_resolves_no_knob(cuda, card_calibration, monke
     finally:
         clear_active_model()
     assert counts == [14, 14]
+
+
+# --- LM serving: the MoE's secure expert exchange on the card ---------------------------
+
+
+def _lm_serve(cfg, model, toks, mesh, secure):
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    cache = init_cache(cfg, toks.shape[0], toks.shape[1] + 2, toks.device)
+    tp = toks.shape[1] - 2
+    out = [prefill(cfg, model, toks[:, :tp], cache, mesh=mesh, secure_moe=secure)]
+    for i in (tp, tp + 1):
+        out.append(decode_step(cfg, model, cache, toks[:, i:i + 1], mesh=mesh))
+    return out, cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shards", [("granite-moe-3b-a800m", 4), ("qwen2-moe-a2.7b", 2)])
+def test_secure_moe_serving_card_equals_cpu(cuda, arch, shards):
+    """Reduced config (float32), secure prefill and two decode steps: the card
+    within rtol/atol 1e-3 of the CPU's plain versions, 4 ChaCha launches a
+    layer in the prefill, and secure logits == plain logits bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import LM, init_params
+
+    cfg = get_config(arch).reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), shards, "cpu")
+    card_model = LM(cfg, shards, cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    sec = _cfg()
+    want, _ = _lm_serve(cfg, cpu_model, toks, VirtualMesh(shards, "cpu"), sec)
+    before = ck.launches
+    got, cache = _lm_serve(cfg, card_model, toks.to(cuda), VirtualMesh(shards, cuda), sec)
+    assert ck.launches - before == 4 * cfg.n_layers
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float().cpu(), w.float(), rtol=1e-3, atol=1e-3)
+    plain, plain_cache = _lm_serve(cfg, card_model, toks.to(cuda), VirtualMesh(shards, cuda),
+                                   None)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    assert torch.equal(cache["k"], plain_cache["k"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards,e_loc,cap,d", [(8, 5, 12, 1536), (4, 1, 5, 33), (2, 3, 4, 7)])
+def test_chacha_on_a_bf16_moe_wire_equals_plain(cuda, shards, e_loc, cap, d):
+    """The MoE's send buffers (S, S, E_loc * cap, d) bf16, odd row widths
+    included (a padded last word): the kernel == its plain version bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import shuffle
+
+    g = torch.Generator().manual_seed(shards * 1000 + d)
+    send = torch.randint(-2**15, 2**15, (shards, shards, e_loc * cap, d), dtype=torch.int16,
+                         generator=g).view(torch.bfloat16)
+    outs = {}
+    for dev in ("cpu", cuda):
+        wire, layout, treedef = shuffle._pack_wire_coalesced({"x": send.to(dev)}, lead=2)
+        s, r, w = wire.shape
+        ids = shuffle._exchange_ids(s, r, wire.device)
+        outs[str(dev)] = shuffle._crypt_wire_coalesced(wire.reshape(s * r, w), layout, _cfg(),
+                                                       ids[0], ids[1], 3).cpu()
+    assert torch.equal(outs["cpu"], outs[str(cuda)])
+    recv = shuffle.keyed_all_to_all({"x": send.to(cuda)}, VirtualMesh(shards, cuda), _cfg())
+    bits = recv["x"].cpu().view(torch.int16)  # random bits hold NaNs: compare patterns
+    assert torch.equal(bits, send.view(torch.int16).transpose(0, 1))

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs fourteen phases, each printing one JSON line, and a fifteenth line:
+then runs fifteen phases, each printing one JSON line, and a sixteenth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -119,6 +119,25 @@ then runs fourteen phases, each printing one JSON line, and a fifteenth line:
                  the prefill's operations bound and the decode step's bytes
                  bound; the reduced model on 4 shards, secure, card == CPU
                  within 1e-3
+  lm_train       LM training of granite-moe-3b-a800m at its published config:
+                 float32 masters, bf16 compute, experts on 8 virtual shards,
+                 batch 4 x 1024 from the secure data pipeline (cut to 2 past
+                 75 GB of peak memory), secure ingest and a secure MoE, remat
+                 sqrt (4 groups of 8) with save_shuffle, AdamW in place: from
+                 one seeded state, secure gradients == plain bit for bit and a
+                 secure step == a plain step (loss, parameters, moments) bit
+                 for bit, every expert weight's gradient nonzero; steps 2-9
+                 secure and plain in turns, every loss and gradient norm
+                 finite, 1 + 8 ChaCha launches a layer per secure step (no
+                 exchange replayed); a profiled step's idle share and largest
+                 device items; the optimizer update's ms; peak memory; step
+                 ms, tokens/s and the step's operations bound; the update's
+                 bytes bound; the kernel on a training leg's wire (== plain
+                 bit for bit, rounds 0 and 2**31) against its bytes bound;
+                 what the fixed-order backwards cost against float atomics;
+                 the reduced model on 4 shards card == CPU within rtol 1e-4
+                 after two steps, and 2 steps + a checkpoint + 2 resumed ==
+                 4 straight steps bit for bit on the card
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
@@ -126,7 +145,8 @@ then runs fourteen phases, each printing one JSON line, and a fifteenth line:
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
-                 calibrate, lm_serve; k-means: k-means, calibrate), each counted from 0
+                 calibrate, lm_serve, lm_train; k-means: k-means, calibrate),
+                 each counted from 0
                  just before that
                  path's run, and on the serve path (by profiler: replayed
                  graphs bypass the wrappers' counters); the k-means kernel's
@@ -1612,6 +1632,384 @@ def phase_lm_serve(dev):
     return res
 
 
+# lm_train: granite-moe-3b-a800m at its published config, float32 masters,
+# bf16 compute, experts on 8 shards, batch 4 x 1024 from the secure pipeline
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED, TRAIN_LR = 4, 1024, 0, 3e-4
+TRAIN_PEAK_LIMIT = 75e9  # past it the batch is cut to 2
+# reduced model, card == CPU after two steps at lr 1e-3: losses within rtol
+# 1e-4; parameters within 1e-2 x lr where the gradient, at each step, is at
+# least 1e-2 of its leaf's largest (`adam_steady_mask`): a gradient's
+# rounding, ~1e-6 of its leaf's scale, is then a small share of the
+# element's own, and so is its update's share of lr. Adam normalises each
+# element, so a smaller gradient's rounding reaches its update at full size
+# (at step 1 the update is lr x sign(g)).
+TRAIN_SMALL_TOL, TRAIN_SMALL_PARAM_ATOL = 1e-4, 1e-2 * 1e-3
+TRAIN_INGEST_KEY = b"\x42" * 32
+
+
+def adam_steady_mask(mus: list, b1: float = 0.9) -> torch.Tensor:
+    """Elements whose gradient is at least 1e-2 of the leaf's largest at
+    every step, from the first moments after each step: mu_t - b1 mu_{t-1}
+    is (1 - b1) times step t's clipped gradient."""
+    prev, mask = torch.zeros_like(mus[0]), torch.ones_like(mus[0], dtype=torch.bool)
+    for mu in mus:
+        g = (mu - b1 * prev).abs()
+        mask &= g >= 1e-2 * g.max()
+        prev = mu
+    return mask
+
+
+def lm_train_flops(cfg, b: int, t: int, n_shards: int) -> dict:
+    """Model operations of one training step: 3 x the forward (the forward
+    once, the backward twice), the forward as `lm_prefill_flops` counts it
+    but with every token unembedded; remat's recomputation is not counted."""
+    fwd = lm_prefill_flops(cfg, b, t, n_shards)
+    fwd["unembed"] = 2 * b * t * cfg.d_model * cfg.padded_vocab
+    fwd["total"] = sum(v for k, v in fwd.items() if k != "total")
+    return {k: 3 * v for k, v in fwd.items()}
+
+
+def _digest(tensors) -> list:
+    """Per tensor, two int64 sums of its 32-bit words (plain, and weighted by
+    position; both wrap): equal trees give equal digests, and a flipped bit
+    anywhere changes one."""
+    sums = []
+    for t in tensors:
+        w = t.detach().reshape(-1).view(torch.int32).long()
+        sums.append(torch.stack([w.sum(), (w * torch.arange(1, w.numel() + 1,
+                                                             device=w.device)).sum()]))
+    return torch.stack(sums).cpu().tolist()
+
+
+def _state_digest(model, opt) -> list:
+    return _digest(list(model.parameters()) + list(opt["mu"].values())
+                   + list(opt["nu"].values()) + [opt["count"]])
+
+
+def _train_setup(cfg, dev, batch, seq, shards, seed):
+    """(step factories' shared kwargs, ingest, secure source, plain batches)."""
+    from repro_torch.crypto.keys import make_session_keys
+    from repro_torch.data.pipeline import SecureShardedSource
+    from repro_torch.data.synthetic import batches, synthetic_tokens
+    from repro_torch.train.step import SecureIngest
+
+    session = make_session_keys(TRAIN_INGEST_KEY)
+    ingest = SecureIngest(key_words=session.words("data"),
+                          nonce_words=session.nonce_words("data", 0))
+    toks = synthetic_tokens(max(16 * batch * seq, 65536), cfg.vocab_size, seed=seed)
+    src = SecureShardedSource(toks, batch=batch, seq=seq, session=session, seed=seed + 1,
+                              device=dev)
+    plain = batches(toks, batch, seq, seed=seed + 1)  # the same draws, in plaintext
+    return ingest, src, plain
+
+
+def lm_train_small_on_card_and_cpu(dev):
+    """Reduced granite-moe (float32) on 4 virtual shards, secure ingest and
+    MoE: two steps from one seeded state on the card and on the CPU (plain
+    versions), and on the card 2 steps + a checkpoint + 2 resumed steps
+    against 4 straight steps."""
+    import tempfile
+
+    from repro_torch import VirtualMesh
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(LM_ARCH).reduced()
+    shards = LM_SMALL_SHARDS
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(5), shards, "cpu",
+                            torch.float32)
+
+    def run(device, n_steps, mgr=None, save_at=None, resume_at=None):
+        model = LM(cfg, shards, device, torch.float32)
+        model.load_state_dict(cpu_model.state_dict())
+        opt = adamw_init(dict(model.named_parameters()))
+        ingest, src, _ = _train_setup(cfg, device, 4, 16, shards, 7)
+        step = make_train_step(cfg, VirtualMesh(shards, device), secure_ingest=ingest,
+                               secure_moe=_secure_cfg(), peak_lr=1e-3, warmup=1,
+                               total_steps=10)
+        start = 0
+        if resume_at is not None:
+            (params, opt), extra = mgr.restore(resume_at, (dict(model.named_parameters()), opt),
+                                               device=device)
+            model.load_state_dict(params)
+            src.restore(extra["data_cursor"])
+            start = extra["step"]
+        losses, mus = [], []
+        for i in range(start, n_steps):
+            model, opt, m = step(model, opt, src.next_batch(), i + 1)
+            losses.append(float(m["loss"]))
+            mus.append({k: v.detach().cpu().clone() for k, v in opt["mu"].items()})
+            if save_at == i + 1:
+                mgr.save(save_at, (dict(model.named_parameters()), opt),
+                         extra={"step": save_at, "data_cursor": src.state})
+        return model, opt, losses, mus
+
+    card_model, _, card_losses, _ = run(dev, 2)
+    cpu_model2, _, cpu_losses, cpu_mus = run("cpu", 2)
+    check(all(np.isclose(a, b, rtol=TRAIN_SMALL_TOL, atol=0)
+              for a, b in zip(card_losses, cpu_losses)),
+          f"lm_train: reduced losses card {card_losses} != CPU {cpu_losses}")
+    worst, compared = 0.0, 0
+    for (k, a), (_, b) in zip(card_model.named_parameters(), cpu_model2.named_parameters()):
+        live = adam_steady_mask([mu[k] for mu in cpu_mus])
+        diff = (a.detach().cpu() - b.detach())[live].abs()
+        check(bool((diff <= TRAIN_SMALL_PARAM_ATOL).all()),
+              f"lm_train: reduced {k} card != CPU (max diff {float(diff.max())})")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        compared += int(live.sum())
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        full_model, full_opt, full_losses, _ = run(dev, 4)
+        run(dev, 2, mgr, save_at=2)
+        res_model, res_opt, res_losses, _ = run(dev, 4, mgr, resume_at=2)
+        resumed_equal = (_state_digest(full_model, full_opt) == _state_digest(res_model, res_opt)
+                         and all(torch.equal(a, b) for a, b in zip(full_model.parameters(),
+                                                                   res_model.parameters()))
+                         and full_losses[2:] == res_losses)
+    check(resumed_equal, "lm_train: a resumed reduced run != the straight run, bit for bit")
+    return {"arch": cfg.name + " (reduced)", "shards": shards, "secure": True, "steps": 2,
+            "losses_card": card_losses, "losses_cpu": cpu_losses,
+            "max_abs_param_diff": worst, "params_compared": compared,
+            "loss_rtol": TRAIN_SMALL_TOL, "param_atol": TRAIN_SMALL_PARAM_ATOL,
+            "params_compared_where": "gradient >= 1e-2 x the leaf's largest at both steps",
+            "resume_2_ckpt_2_equals_4_bit_for_bit": True}
+
+
+def determinism_costs(dev, cfg, b: int, t: int, shards: int) -> dict:
+    """What the fixed-order backwards cost against the default scatters with
+    float atomics, at this phase's shapes (CUDA events): the embedding
+    lookup's (once a step) and each MoE layer's k-fold token broadcast (once
+    a layer)."""
+    from repro_torch.models.layers import _EmbedLookup
+    from repro_torch.models.moe import _entry_values
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn(cfg.padded_vocab, cfg.d_model, device=dev, generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), device=dev, generator=g)
+    ct = torch.randn(b, t, cfg.d_model, device=dev, generator=g).to(torch.bfloat16)
+    tab = table.requires_grad_()
+    out = _EmbedLookup.apply(tab, tokens, torch.bfloat16)
+    fixed = cuda_ms(lambda: torch.autograd.grad(out, tab, ct, retain_graph=True), 5)
+    atomic = cuda_ms(lambda: torch.zeros(cfg.padded_vocab, cfg.d_model, device=dev,
+                                         dtype=torch.bfloat16).index_put_(
+        (tokens.reshape(-1),), ct.reshape(-1, cfg.d_model), accumulate=True).float(), 5)
+    k = cfg.n_experts_per_tok
+    n = b * t // shards
+    x2 = torch.randn(shards, n, cfg.d_model, device=dev, generator=g).to(
+        torch.bfloat16).requires_grad_()
+    ev = _entry_values(x2, k)
+    cte = torch.randn(ev.shape, device=dev, generator=g).to(torch.bfloat16)
+    token = torch.arange(n, device=dev).repeat_interleave(k)
+    fixed_e = cuda_ms(lambda: torch.autograd.grad(ev, x2, cte, retain_graph=True), 5)
+    atomic_e = cuda_ms(lambda: torch.zeros_like(x2).index_add_(1, token, cte), 5)
+    return {"embed_backward_ms": fixed, "embed_index_put_accumulate_ms": atomic,
+            "entry_broadcast_backward_ms": fixed_e, "entry_index_add_ms": atomic_e,
+            "fixed_order_minus_atomics_ms_per_step":
+                (fixed - atomic) + cfg.n_layers * (fixed_e - atomic_e)}
+
+
+def _lm_train_at(dev, cfg, batch):
+    """The phase at one batch size (see `phase_lm_train`)."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.train.step import decrypt_batch, make_train_step, value_and_grad
+
+    mesh = VirtualMesh(LM_SHARDS, dev)
+    sec = _secure_cfg()
+    ingest, src, plain = _train_setup(cfg, dev, batch, TRAIN_SEQ, LM_SHARDS, TRAIN_SEED)
+    kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=100)
+    secure_step = make_train_step(cfg, mesh, secure_ingest=ingest, secure_moe=sec, **kw)
+    plain_step = make_train_step(cfg, mesh, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                           LM_SHARDS, dev, torch.float32)
+
+    def draw():
+        ct = src.next_batch()
+        return ct, {"tokens": torch.from_numpy(next(plain)).to(dev)}
+
+    # 1. the gradients of one batch from the seeded state, secure == plain
+    model, init_s = timed(fresh)
+    init_digest = _digest(model.parameters())
+    param_count = sum(p.numel() for p in model.parameters())
+    ct1, plain1 = draw()
+    lp, mp, gp = value_and_grad(cfg, model, plain1, mesh, None)
+    ls, ms_, gs = value_and_grad(cfg, model, decrypt_batch(ct1, ingest), mesh, sec)
+    check(torch.equal(lp, ls) and all(torch.equal(mp[k], ms_[k]) for k in mp),
+          "lm_train: secure loss != plain loss, bit for bit")
+    check(all(torch.equal(gp[k], gs[k]) for k in gp),
+          "lm_train: secure gradients != plain gradients, bit for bit")
+    del gs
+    finite = torch.stack([torch.isfinite(g).all() for g in gp.values()]).all()
+    check(bool(finite) and bool(torch.isfinite(lp)), "lm_train: non-finite loss or gradient")
+    expert_sums = torch.stack([gp[f"layers.{i}.moe.{w}"].abs().sum()
+                               for i in range(cfg.n_layers) for w in ("wi", "wg", "wo")])
+    check(bool((expert_sums > 0).all()), "lm_train: an expert weight has a zero gradient")
+    del gp
+
+    # 2. a plain step and a secure step from the same seeded state
+    opt = adamw_init(dict(model.named_parameters()))
+    (model, opt, m_plain), plain_first_s = timed(lambda: plain_step(model, opt, plain1, 1))
+    plain_digest, m_plain = _state_digest(model, opt), {k: float(v) for k, v in m_plain.items()}
+    del model, opt
+    model = fresh()
+    check(_digest(model.parameters()) == init_digest, "lm_train: the seeded init differs")
+    opt = adamw_init(dict(model.named_parameters()))
+    peaks, step_s, launches, records = [], {"secure": [], "plain": []}, [], []
+    ck.launches = 0  # the main path: secure steps from here, plain ones in turn
+    pipeline_launches = 0  # the data pipeline's encryptions of the path's batches
+    torch.cuda.reset_peak_memory_stats()
+    before = ck.launches
+    with record_wire_bytes() as recs:
+        (model, opt, m1), first_s = timed(lambda: secure_step(model, opt, ct1, 1))
+    launches.append(ck.launches - before)
+    records.append(recs)
+    peaks.append(torch.cuda.max_memory_allocated())
+    secure_digest, m1 = _state_digest(model, opt), {k: float(v) for k, v in m1.items()}
+    check(secure_digest == plain_digest and m1 == m_plain,
+          "lm_train: the secure step's parameters, moments or metrics != the plain step's")
+    metrics = [m1]
+
+    # 3. steps 2..9: secure and plain in turns (the plain ones: plaintext
+    # tokens, plain MoE), every loss and gradient norm finite
+    for i, name in zip(range(2, 10), ("secure", "plain") * 4):
+        before = ck.launches
+        ct, pl = draw()
+        pipeline_launches += ck.launches - before
+        before = ck.launches
+        with record_wire_bytes() as recs:
+            if name == "secure":
+                (model, opt, m), s = timed(lambda: secure_step(model, opt, ct, i))
+            else:
+                (model, opt, m), s = timed(lambda: plain_step(model, opt, pl, i))
+        step_s[name].append(s)
+        if name == "secure":
+            launches.append(ck.launches - before)
+            records.append(recs)
+        else:
+            check(ck.launches == before, "lm_train: a plain step launched the ChaCha kernel")
+        metrics.append({k: float(v) for k, v in m.items()})
+        peaks.append(torch.cuda.max_memory_allocated())
+    path_launches = ck.launches
+    for m in metrics:
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"lm_train: non-finite loss or gradient norm {m}")
+    per_step = 1 + 8 * cfg.n_layers
+    check(launches == [per_step] * 5,
+          f"lm_train: ChaCha launches per secure step {launches}, not {per_step}")
+    check(all(len(r) == 4 * cfg.n_layers and all(x["secure"] for x in r) for r in records),
+          "lm_train: not 4 secure wire records a layer per step (2 legs, 2 cotangent legs)")
+
+    # 4. a profiled secure step
+    ct, _ = draw()
+    prof, busy_ms, top = _profiled(lambda: timed(lambda: secure_step(model, opt, ct, 10)))
+    prof_ms = 1e3 * prof[1]
+    # 5. the optimizer update alone, on zero gradients
+    named = dict(model.named_parameters())
+    grads = {k: torch.zeros_like(p) for k, p in named.items()}
+    lr = torch.tensor(TRAIN_LR, device=dev)
+    update_ms = cuda_ms(lambda: adamw_update(named, grads, opt, lr), 3, warm=1)
+    del grads, named
+    peak = max(peaks)
+    wire_bytes_step = sum(r["wire_bytes"] for r in records[0]) * LM_SHARDS
+    del model, opt, prof
+    torch.cuda.empty_cache()
+    return {"batch": batch, "param_count": param_count,
+            "state_bytes": 4 * 4 * param_count, "init_s": init_s,
+            "loss_step1": m1["loss"], "grad_norm_step1": m1["grad_norm"],
+            "metrics": metrics, "first_secure_step_s": first_s,
+            "first_plain_step_s": plain_first_s, "step_s": step_s,
+            "launches_per_secure_step": launches, "pipeline_launches": pipeline_launches,
+            "path_launches": path_launches, "wire_bytes_per_step": wire_bytes_step,
+            "wire_bytes_per_leg": records[0][0]["wire_bytes"] * LM_SHARDS,
+            "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1 - busy_ms / prof_ms,
+            "idle_share_of_unprofiled_step": None if busy_ms is None
+            else 1 - busy_ms / (1e3 * float(np.median(step_s["secure"]))),
+            "top_device_ops": top, "update_ms": update_ms, "peak_memory_bytes": peak}
+
+
+def phase_lm_train(dev):
+    """LM training of granite-moe-3b-a800m at its published config (32
+    layers, d_model 1536, 40 experts top-8, vocab 49155): float32 masters,
+    bf16 compute, weights from a seeded generator, experts on 8 virtual
+    shards, batch 4 x 1024 from `SecureShardedSource` (cut to 2 past 75 GB
+    of peak memory), secure ingest and a secure MoE, remat `sqrt` (4 groups
+    of 8 layers) with `save_shuffle`, AdamW in place. Asserts: secure
+    gradients, loss, updated parameters and moments == plain bit for bit
+    from one seeded state; every expert weight's gradient nonzero; every loss
+    and gradient norm finite; 1 + 8 ChaCha launches a layer per secure step
+    (the ingest decrypt; 2 legs and 2 cotangent legs, 2 crypts each) and none
+    replayed; the kernel == its plain version on a training leg's wire at
+    rounds 0 and 2**31; the reduced model card == CPU within
+    TRAIN_SMALL_TOL after two steps; a resumed reduced run == the straight
+    run bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import _remat_groups
+    from repro_torch.models.moe import _capacity, padded_experts
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.n_experts_per_tok, cfg.vocab_size,
+           cfg.remat, cfg.moe_remat) == (32, 1536, 40, 8, 49155, "sqrt", "save_shuffle"),
+          "lm_train: not the published granite-moe config")
+    batch, batch_cut = TRAIN_BATCH, None
+    res = _lm_train_at(dev, cfg, batch)
+    if res["peak_memory_bytes"] > TRAIN_PEAK_LIMIT:
+        batch_cut = {"from": batch, "peak_bytes": res["peak_memory_bytes"]}
+        batch = 2
+        res = _lm_train_at(dev, cfg, batch)
+    tokens = batch * TRAIN_SEQ
+    secure_s = float(np.median(res["step_s"]["secure"]))
+    plain_s = float(np.median(res["step_s"]["plain"]))
+    flops = lm_train_flops(cfg, batch, TRAIN_SEQ, LM_SHARDS)
+    update_bytes = 7 * 4 * res["param_count"]  # read p, g, mu, nu; write p, mu, nu
+
+    # the ChaCha kernel on one training leg's wire, forward and cotangent rounds
+    e_pad = padded_experts(cfg, LM_SHARDS)
+    cap = _capacity(cfg, tokens // LM_SHARDS, e_pad)
+    g = torch.Generator(device=dev).manual_seed(19)
+    send = torch.randint(-2**15, 2**15, (LM_SHARDS, LM_SHARDS, e_pad // LM_SHARDS * cap,
+                                         cfg.d_model),
+                         dtype=torch.int16, device=dev, generator=g).view(torch.bfloat16)
+    crypt = wire_crypt(dev, {"x": send}, 20, 0)
+    crypt_ct = wire_crypt(dev, {"x": send}, 5, 1 << 31)
+    del send
+    check(crypt["wire_bytes"] == res["wire_bytes_per_leg"],
+          "lm_train: the timed wire is not a training leg's wire")
+    costs = determinism_costs(dev, cfg, batch, TRAIN_SEQ, LM_SHARDS)
+    torch.cuda.empty_cache()
+    small = lm_train_small_on_card_and_cpu(dev)
+    out = {"phase": "lm_train", "arch": cfg.name, "config": "full (published)",
+           "dtype": cfg.dtype, "param_dtype": "float32", "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "experts": cfg.n_experts, "top_k": cfg.n_experts_per_tok,
+           "shards": LM_SHARDS, "batch": batch, "seq": TRAIN_SEQ, "batch_cut": batch_cut,
+           "remat": cfg.remat, "remat_groups": _remat_groups(cfg, cfg.n_layers),
+           "moe_remat": cfg.moe_remat, "capacity_per_expert": cap,
+           **{k: v for k, v in res.items() if k not in ("batch",)},
+           "step_ms": 1e3 * secure_s, "plain_step_ms": 1e3 * plain_s,
+           "secure_over_plain": secure_s / plain_s, "tokens_per_s": tokens / secure_s,
+           "flops": flops, "step_bound_ms": 1e3 * flops["total"] / PEAK_BF16_S,
+           "step_bound_by": "operations",
+           "update_bytes": update_bytes, "update_bound_ms": 1e3 * update_bytes / PEAK_BYTES_S,
+           "update_bound_by": "bytes",
+           "chacha": crypt, "chacha_cotangent_round": crypt_ct,
+           "determinism": costs, "secure_equals_plain": True,
+           "reduced": small, "launches": {"chacha20": res["path_launches"]},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
 SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2021,6 +2419,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)
     freed["lm_serve"] = collect_garbage()
+    torch.cuda.empty_cache()
+    tr = phase_lm_train(dev)
+    freed["lm_train"] = collect_garbage()
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -2029,7 +2430,8 @@ def main(argv=None) -> int:
                "grep": grp["launches"]["chacha20"], "wordcount": wc["launches"]["chacha20"],
                "enclave": enc["launches"]["chacha20"],
                "calibrate": cal["launches"]["chacha20"],
-               "lm_serve": lm["launches"]["chacha20"]}
+               "lm_serve": lm["launches"]["chacha20"],
+               "lm_train": tr["launches"]["chacha20"]}
     check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
@@ -2052,6 +2454,10 @@ def main(argv=None) -> int:
          "ms_lm_serve_wire": lm["chacha"]["kernel_ms"],
          "bound_ms_lm_serve_wire": lm["chacha"]["bound_ms"],
          "lanes_lm_serve_wire": lm["chacha"]["lanes"],
+         "launches_per_lm_train_step": tr["launches_per_secure_step"][0],
+         "ms_lm_train_wire": tr["chacha"]["kernel_ms"],
+         "bound_ms_lm_train_wire": tr["chacha"]["bound_ms"],
+         "lanes_lm_train_wire": tr["chacha"]["lanes"],
          "ms_wordcount_wire": wc["chacha"]["kernel_ms"],
          "bound_ms_wordcount_wire": wc["chacha"]["bound_ms"],
          "lanes_wordcount_wire": wc["chacha"]["lanes"],

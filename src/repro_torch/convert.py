@@ -4,7 +4,8 @@ What crosses over is session key material, data and LM weights. These
 helpers turn numpy values (as the JAX package holds or returns them) into
 the port's objects on a given device, so both packages compute on identical
 inputs. `lm_params` turns the reference's `init_params` tree into the port
-model's `state_dict`.
+model's `state_dict`, `adamw_state` the reference's AdamW state into the
+port's optimizer state.
 """
 
 from __future__ import annotations
@@ -83,4 +84,17 @@ def lm_params(cfg, np_params, n_model: int = 1) -> dict:
         if e != padded_experts(cfg, n_model):
             raise ValueError(f"{e} experts in the tree, {padded_experts(cfg, n_model)} "
                              f"for n_model={n_model}")
+    return out
+
+
+def adamw_state(cfg, np_opt_state, n_model: int = 1, device=None) -> dict:
+    """The port's AdamW state (`repro_torch.optim.adamw_init`'s form) from the
+    reference's `{"mu", "nu", "count"}` with numpy leaves: the moments
+    sliced per layer as `lm_params` slices the parameters, on `device`."""
+    device = resolve_device(device)
+    out = {k: {name: t.to(device) for name, t in lm_params(cfg, np_opt_state[k],
+                                                            n_model).items()}
+           for k in ("mu", "nu")}
+    out["count"] = torch.tensor(int(np.asarray(np_opt_state["count"])), dtype=torch.int32,
+                                device=device)
     return out

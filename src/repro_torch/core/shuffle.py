@@ -61,6 +61,7 @@ from repro_torch.crypto.ctr import WORD, words_for
 from repro_torch.device import device_constant
 from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_rows
 from repro_torch.kernels.chacha20.table import BlockTable, block_table
+from repro_torch.mesh import VirtualMesh
 from repro_torch.perf.model import recommendation
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -502,7 +503,101 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
     tensor is taken as u32 bits, another integer masked to 32 bits); None is
     round 0. In plaintext mode `coalesce` picks the wire (default packed); in
     secure mode the config's own `coalesce` governs.
+
+    When grad is enabled and a leaf requires it, the exchange runs as the op
+    `torch.ops.repro_torch.keyed_exchange` (same bits), whose backward is the
+    same exchange of the cotangents (`_exchange_backward`).
     """
+    leaves, treedef = tree_flatten(tree)
+    if torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves):
+        if isinstance(round_index, torch.Tensor):
+            raise ValueError("a differentiable exchange takes a host round index")
+        args = _exchange_args(mesh, secure, round_index, coalesce)
+        return tree_unflatten(treedef, keyed_exchange(leaves, *args))
+    return _exchange(tree, mesh, secure, round_index, coalesce)
+
+
+# --- the differentiable exchange ----------------------------------------------------
+
+BACKWARD_ROUND_BIT = 1 << 31  # XORed into a leg's round index for its cotangents' leg
+
+
+def _exchange_args(mesh, secure, round_index, coalesce) -> tuple:
+    """The op's arguments after `leaves`: the wire resolved to a bool, the
+    session material as host ints (zeros for plaintext), None as round 0."""
+    if secure is None:
+        return (mesh.n_shards, False, [0] * 8, [0] * 3, 0, 0, "auto",
+                resolve_coalesce(coalesce))
+    return (mesh.n_shards, True,
+            [int(w) for w in np.asarray(secure.key_words, np.uint32).reshape(-1)],
+            [int(w) for w in np.asarray(secure.nonce_words, np.uint32).reshape(-1)],
+            int(secure.counter0), int(round_index or 0) & MASK32, secure.impl,
+            resolve_coalesce(secure.coalesce))
+
+
+@torch.library.custom_op("repro_torch::keyed_exchange", mutates_args=())
+def keyed_exchange(leaves: list[torch.Tensor], n_shards: int, secure: bool,
+                   key_words: list[int], nonce_words: list[int], counter0: int,
+                   round_index: int, impl: str, coalesce: bool) -> list[torch.Tensor]:
+    """`keyed_all_to_all` of a list of (S, R, C, ...) leaves as one operator:
+    a selective-checkpoint policy can save its outputs by name, and its
+    backward is `_exchange_backward`."""
+    mesh = VirtualMesh(n_shards, leaves[0].device)
+    cfg = None
+    if secure:
+        cfg = SecureShuffleConfig(key_words=np.asarray(key_words, np.uint32),
+                                  nonce_words=np.asarray(nonce_words, np.uint32),
+                                  counter0=counter0, impl=impl, coalesce=coalesce)
+    out = _exchange(list(leaves), mesh, cfg, round_index, coalesce)
+    # an operator's outputs own their storage: a leaf the exchange left in
+    # place (one shard), or two leaves unpacked from one wire, are copied
+    seen = {leaf.untyped_storage().data_ptr() for leaf in leaves}
+    owned = []
+    for o in out:
+        if o.numel() and o.untyped_storage().data_ptr() in seen:
+            o = o.clone()
+        seen.add(o.untyped_storage().data_ptr())
+        owned.append(o)
+    return owned
+
+
+@keyed_exchange.register_fake
+def _(leaves, n_shards, secure, key_words, nonce_words, counter0, round_index, impl,
+      coalesce):
+    return [torch.empty_like(leaf) for leaf in leaves]
+
+
+def _exchange_setup(ctx, inputs, output):
+    leaves, *args = inputs
+    ctx.args = args
+    ctx.leaves = [(leaf.shape, leaf.dtype, leaf.device, leaf.is_floating_point())
+                  for leaf in leaves]
+
+
+def _exchange_backward(ctx, grads):
+    """The exchange is a transpose of the shard axes, its own inverse, so the
+    cotangents cross back by the same exchange. In secure mode they travel
+    encrypted, under round index ^ 2**31 (nonce word 1): a pad no forward
+    leg draws whatever the wire's size, and the same at every replay. The
+    wire accounting records this leg as a leg of its own."""
+    n_shards, secure, key_words, nonce_words, counter0, round_index, impl, coalesce = ctx.args
+    idx = [i for i, like in enumerate(ctx.leaves) if like[3]]
+    cts = [grads[i] if grads[i] is not None
+           else torch.zeros(ctx.leaves[i][0], dtype=ctx.leaves[i][1], device=ctx.leaves[i][2])
+           for i in idx]
+    back = keyed_exchange(cts, n_shards, secure, key_words, nonce_words, counter0,
+                          round_index ^ BACKWARD_ROUND_BIT, impl, coalesce)
+    out = [None] * len(ctx.leaves)
+    for i, g in zip(idx, back):
+        out[i] = g
+    return (out,) + (None,) * 8
+
+
+keyed_exchange.register_autograd(_exchange_backward, setup_context=_exchange_setup)
+
+
+def _exchange(tree, mesh, secure, round_index, coalesce):
+    """The exchange itself: `keyed_all_to_all`'s contract."""
     leaves = tree_flatten(tree)[0]
     s = mesh.n_shards
     r = leaves[0].shape[1]

@@ -1,13 +1,18 @@
 """Block composition per architecture family (pre-norm residual blocks).
 
-Counterpart of `repro/models/blocks.py` for the kinds the port serves:
-`attn` (the dense and vlm families) and `moe`. The `mamba`, `rwkv`, `enc`
-and `dec_cross` kinds and `remat_wrap` (training) are ROADMAP item 10.
+Counterpart of `repro/models/blocks.py` for the kinds the port has: `attn`
+(the dense and vlm families) and `moe`, and the remat policy
+(`remat_wrap`). The `mamba`, `rwkv`, `enc` and `dec_cross` kinds are
+ROADMAP item 10.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -36,6 +41,34 @@ class Block(nn.Module):
 def block_init(cfg, kind: str, n_model: int = 1, device=None) -> Block:
     """An uninitialised block (`layers.init_module` draws its parameters)."""
     return Block(cfg, kind, device, n_model)
+
+
+# the matrix products `dots_with_no_batch_dims_saveable` keeps: products with
+# no batch dimension (the batched expert products are bmm)
+DOT_OPS = (torch.ops.aten.mm.default,)
+
+
+def checkpointed(fn, save_ops=()):
+    """`fn` under `torch.utils.checkpoint` (non-reentrant): the backward
+    recomputes its activations, but for the outputs of the operators in
+    `save_ops`, which a selective-checkpoint policy keeps (their recompute
+    returns the kept tensors without running the operator)."""
+    if not save_ops:
+        return partial(checkpoint, fn, use_reentrant=False)
+    context_fn = partial(create_selective_checkpoint_contexts, list(save_ops))
+    return partial(checkpoint, fn, use_reentrant=False, context_fn=context_fn)
+
+
+def remat_wrap(cfg, fn, save_ops=()):
+    """The remat policy, as the reference's. `save_ops` stands for the
+    reference's checkpoint names: operators whose outputs the backward keeps
+    (the MoE's expert exchange, `moe.EXCHANGE_OPS`), so it does not replay
+    the exchange or its ChaCha launches."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return checkpointed(fn, DOT_OPS)
+    return checkpointed(fn, save_ops)
 
 
 def apply_attn_block(cfg, p, x, positions, causal=None):

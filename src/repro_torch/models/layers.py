@@ -8,10 +8,16 @@ which `init_params` draws from one `torch.Generator` in the module's
 parameter order: the same distributions as the reference's `ninit`, other
 bits (`repro_torch.convert.lm_params` carries the reference's bits over).
 
-Weight matrices are held in the config's compute dtype; norm scales stay
-float32, as every use reads them in float32. The reference keeps float32
-masters and casts a matrix at each use; casting once gives the same bits,
-and serving holds no masters (a bf16 config's float32 masters are dropped).
+Serving holds weight matrices in the config's compute dtype, with no
+gradient; norm scales stay float32, as every use reads them in float32.
+Training holds float32 masters, as the reference does (`LM(...,
+param_dtype=torch.float32)`), and every use casts a matrix to the compute
+dtype (the dtype of the activations it meets, as the reference's); on
+serving's weights that cast is a no-op, so serving's bits do not change.
+
+The embedding lookup's backward (`_EmbedLookup`) sums each vocabulary row's
+contributions in token order, in float32, with no atomics: the gradient
+does not depend on the device's scheduling.
 """
 
 from __future__ import annotations
@@ -131,8 +137,32 @@ class Embed(Params):
         self.param("table", (vocab, d_model), compute_dtype(cfg), device, ("normal", 0.02))
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """table.to(dtype)[tokens], whose backward adds each row's cotangents in
+    token order (a stable sort, then a sequential segment sum) in float32.
+    The default backward (`index_put_` with accumulate) adds them with float
+    atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, dtype):
+        ctx.save_for_backward(tokens)
+        ctx.vocab, ctx.table_dtype = table.shape[0], table.dtype
+        return table.to(dtype)[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        rows = torch.arange(ctx.vocab + 1, dtype=flat.dtype, device=flat.device)
+        bounds = torch.searchsorted(flat[order], rows)
+        grad = torch.segment_reduce(g.reshape(flat.shape[0], -1)[order].float(), "sum",
+                                    lengths=bounds[1:] - bounds[:-1], axis=0, unsafe=True)
+        return grad.to(ctx.table_dtype), None, None
+
+
 def embed_apply(cfg, params, tokens):
-    return params.table.to(compute_dtype(cfg))[tokens]
+    return _EmbedLookup.apply(params.table, tokens, compute_dtype(cfg))
 
 
 def unembed_apply(cfg, params, x):

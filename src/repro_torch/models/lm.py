@@ -1,11 +1,14 @@
-"""LM assembly: init and forward for the dense, vlm and moe families.
+"""LM assembly: init, forward and loss for the dense, vlm and moe families.
 
 Counterpart of `repro/models/lm.py`. The reference scans stacked per-layer
 parameters; the port holds one `Block` per layer (`layers.<i>`) and walks
-them in a Python loop. The moe family runs the secure-shuffle expert
-dispatch inside each block. Training's remat and `loss_fn`, and the ssm,
-hybrid and audio families, are ROADMAP item 10: `init_params` raises
-NotImplementedError for those families.
+them in a Python loop, under the config's remat policy (`_walk_layers`:
+`remat_wrap` per layer, and for `remat="sqrt"` the reference's second level
+of G groups). The moe family runs the secure-shuffle expert dispatch inside
+each block; with `moe_remat="save_shuffle"` the backward keeps both legs'
+outputs at both levels and replays no exchange. The ssm, hybrid and audio
+families are ROADMAP item 10: `init_params` raises NotImplementedError for
+those families.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Embed,
     Norm,
@@ -50,9 +54,13 @@ class LM(nn.Module):
     `layers.<i>.{ln1,attn,ln2,mlp|moe}.*`, `final_norm.scale`. Built
     uninitialised; `init_params` draws it, `load_state_dict` of
     `repro_torch.convert.lm_params` loads the reference's. `n_model` pads the
-    experts to a multiple of the mesh's shards, as the reference's."""
+    experts to a multiple of the mesh's shards, as the reference's.
 
-    def __init__(self, cfg, n_model: int = 1, device=None):
+    `param_dtype` None holds the matrices in the compute dtype with no
+    gradient (serving); a dtype (float32 for training, the reference's
+    masters) holds every floating parameter in it, requiring grad."""
+
+    def __init__(self, cfg, n_model: int = 1, device=None, param_dtype=None):
         super().__init__()
         check_family(cfg)
         device = resolve_device(device)
@@ -60,16 +68,61 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(B.block_init(cfg, main_kind(cfg), n_model, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg.d_model, device)
+        if param_dtype is not None:
+            self.to(param_dtype).requires_grad_(True)
 
 
-def init_params(cfg, generator: torch.Generator, n_model: int = 1, device=None) -> LM:
+def init_params(cfg, generator: torch.Generator, n_model: int = 1, device=None,
+                param_dtype=None) -> LM:
     """A model with every parameter drawn from `generator` (on `device`)."""
-    return init_module(LM(cfg, n_model, device), generator)
+    return init_module(LM(cfg, n_model, device, param_dtype), generator)
 
 
-@torch.no_grad()
+def _remat_groups(cfg, n_layers: int) -> int:
+    """Outer group count for two-level (sqrt-L) remat, as the reference's:
+    the walk keeps only G ≈ sqrt(L) group-boundary activations and each
+    group recomputes its layers in the backward; 1 (per-layer remat alone)
+    when not worthwhile."""
+    if cfg.remat != "sqrt" or n_layers < 12:
+        return 1
+    best, best_cost = 1, float("inf")
+    for g in range(2, n_layers + 1):
+        if n_layers % g:
+            continue
+        cost = g + n_layers // g  # boundaries + recompute span
+        if cost < best_cost:
+            best, best_cost = g, cost
+    return best
+
+
+def _walk_layers(cfg, layers, carry, layer_step, save_ops=()):
+    """carry = layer_step(carry, layer) over the layers in order, under the
+    remat policy (the reference's `_scan_grouped`). `save_ops` are kept at
+    BOTH levels: their outputs (the expert exchange's) are never replayed."""
+    body = B.remat_wrap(cfg, layer_step, save_ops)
+    groups = _remat_groups(cfg, len(layers))
+    if groups == 1:
+        for p in layers:
+            carry = body(carry, p)
+        return carry
+    per = len(layers) // groups
+
+    def group_step(carry, g):
+        for p in layers[g * per:(g + 1) * per]:
+            carry = body(carry, p)
+        return carry
+
+    group = B.checkpointed(group_step, save_ops)
+    for g in range(groups):
+        carry = group(carry, g)
+    return carry
+
+
 def forward(cfg, model, batch, mesh=None, secure_moe=None):
-    """batch: {"tokens": (B, T) int}. Returns (logits (B, T, V_pad), aux dict)."""
+    """batch: {"tokens": (B, T) int}. Returns (logits (B, T, V_pad), aux dict).
+
+    Records a graph for the backward when grad is enabled and the model's
+    parameters require it (a training model, `param_dtype`)."""
     check_family(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -78,13 +131,38 @@ def forward(cfg, model, batch, mesh=None, secure_moe=None):
     aux = {"moe_aux": torch.zeros((), device=tokens.device),
            "moe_dropped": torch.zeros((), dtype=torch.int32, device=tokens.device)}
     if cfg.family == "moe":
-        moe_aux, dropped = aux["moe_aux"], aux["moe_dropped"]
-        for p in model.layers:
-            x, a, d = B.apply_moe_block(cfg, p, x, positions, mesh=mesh, secure=secure_moe)
-            moe_aux, dropped = moe_aux + a, dropped + d
+        def step(carry, p):
+            h, moe_aux, dropped = carry
+            h, a, d = B.apply_moe_block(cfg, p, h, positions, mesh=mesh, secure=secure_moe)
+            return h, moe_aux + a, dropped + d
+
+        save = moe_mod.EXCHANGE_OPS if cfg.moe_remat == "save_shuffle" else ()
+        x, moe_aux, dropped = _walk_layers(cfg, model.layers,
+                                           (x, aux["moe_aux"], aux["moe_dropped"]), step,
+                                           save)
         aux = {"moe_aux": moe_aux / cfg.n_layers, "moe_dropped": dropped}
     else:
-        for p in model.layers:
-            x = B.apply_attn_block(cfg, p, x, positions)
+        x = _walk_layers(cfg, model.layers, x,
+                         lambda h, p: B.apply_attn_block(cfg, p, h, positions))
     x = apply_norm(cfg, model.final_norm, x)
     return unembed_apply(cfg, model.embed, x), aux
+
+
+def loss_fn(cfg, model, batch, mesh=None, secure_moe=None, aux_coef: float = 0.01):
+    """Next-token cross entropy in float32 (+ aux_coef · the MoE load-balance
+    aux), over `batch["loss_mask"]` when given (of width T or T - 1).
+    Returns (loss, {"nll", "moe_aux", "moe_dropped"})."""
+    logits, aux = forward(cfg, model, batch, mesh, secure_moe)
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:].long()
+    lg = logits[:, :-1].float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
+    elif mask.shape[1] == tokens.shape[1]:
+        mask = mask[:, 1:]
+    nll = torch.sum((lse - picked) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    loss = nll + aux_coef * aux["moe_aux"]
+    return loss, {"nll": nll, **aux}

@@ -22,6 +22,11 @@ the drop count comes back as aux.
 The combine adds each token's k gate-weighted expert outputs in index
 order, starting from zero, with no atomics: the result does not depend on
 the device's scheduling, so a secure run equals a plain one bit for bit.
+The backward has no atomics either: the exchange's is the same exchange of
+the cotangents (encrypted too, `core.shuffle._exchange_backward`), each
+token's k entries are a broadcast (`_entry_values`), and the gathers by
+slot read distinct slots but for the dropped entries' spare one, whose
+cotangent is discarded.
 """
 
 from __future__ import annotations
@@ -30,6 +35,10 @@ import torch
 
 from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
 from repro_torch.models.layers import Params, act_fn
+
+# what `moe_remat="save_shuffle"` keeps for the backward: the reference's
+# checkpoint names "moe_recv" and "moe_back", the outputs of both legs
+EXCHANGE_OPS = (torch.ops.repro_torch.keyed_exchange.default,)
 
 
 def padded_experts(cfg, n_model: int = 1) -> int:
@@ -111,10 +120,20 @@ def _capacity(cfg, n_tokens: int, e_pad: int) -> int:
     return max(4, -(-c // 4) * 4)
 
 
-def _entries(n: int, k: int, device):
-    """(entry_token, entry_key): token id and key of each of the n·k entries."""
-    token = torch.arange(n, device=device).repeat_interleave(k)
-    return token, torch.arange(n * k, dtype=torch.int32, device=device)
+def _entry_keys(n: int, k: int, device):
+    """The key of each of the n·k entries: its index."""
+    return torch.arange(n * k, dtype=torch.int32, device=device)
+
+
+def _entry_values(x2, k: int):
+    """(..., n, d) -> (..., n·k, d): each token's row k times, entry order.
+
+    The reference's `x2[entry_token]`, the same values; written as a
+    broadcast, its backward sums each token's k cotangents by a reduction,
+    not by a scatter with float atomics in no fixed order."""
+    n, d = x2.shape[-2:]
+    return x2.unsqueeze(-2).expand(x2.shape[:-2] + (n, k, d)).reshape(
+        x2.shape[:-2] + (n * k, d))
 
 
 def _combine(flat, pos, gates, n: int):
@@ -146,9 +165,9 @@ def _moe_local(cfg, params, x2, e_pad: int, capacity: int | None = None):
     gates, eidx, aux = _route(cfg, params.router, x2, e_pad)
     k = cfg.n_experts_per_tok
     cap = capacity or _capacity(cfg, n, e_pad)
-    token, keys = _entries(n, k, x2.device)
-    _, packed, dropped, pos = bucket_pack(keys, eidx.reshape(-1), {"x": x2[token]}, e_pad,
-                                          cap, return_positions=True)
+    keys = _entry_keys(n, k, x2.device)
+    _, packed, dropped, pos = bucket_pack(keys, eidx.reshape(-1), {"x": _entry_values(x2, k)},
+                                          e_pad, cap, return_positions=True)
     y_buf = _expert_ffn(cfg, params.wi, params.wg, params.wo, packed["x"])
     flat = _with_zero_row(y_buf.reshape(1, e_pad * cap, d))
     y = _combine(flat, pos[None], gates[None], n)[0]
@@ -181,12 +200,12 @@ def _moe_decode_body(cfg, params, x, mesh):
 
     gates, eidx, aux = _route(cfg, params.router, x2, e_pad)
     k = cfg.n_experts_per_tok
-    token, keys = _entries(n, k, x.device)
+    keys = _entry_keys(n, k, x.device)
     expert = eidx.reshape(1, -1)
     mine = (expert >= my_first) & (expert < my_first + e_loc)
     keys = torch.where(mine, keys, -1)
     cap = max(4, n)  # worst case: all local tokens on one local expert
-    values = {"x": x2[token].expand(r, n * k, d)}
+    values = {"x": _entry_values(x2, k).expand(r, n * k, d)}
     _, packed, dropped, pos = bucket_pack(keys, expert - my_first, values, e_loc, cap,
                                           return_positions=True)
     ye = _expert_ffn(cfg, wi, wg, wo, packed["x"])  # (R, E_loc, cap, d)
@@ -216,9 +235,9 @@ def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
     cap = _capacity(cfg, n, e_pad)
 
     # --- map: emit (expert_key, token_vector); shuffle: hash(key) = key ------
-    token, keys = _entries(n, k, x.device)
+    keys = _entry_keys(n, k, x.device)
     _, packed, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1),
-                                          {"x": x2[:, token]}, e_pad, cap,
+                                          {"x": _entry_values(x2, k)}, e_pad, cap,
                                           return_positions=True)
     send = packed["x"].reshape(r, r, e_loc * cap, d)  # dest-shard-major
     recv = keyed_all_to_all({"x": send}, mesh, secure)["x"]  # (R, src, E_loc·cap, d)

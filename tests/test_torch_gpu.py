@@ -1158,3 +1158,120 @@ def test_chacha_on_a_bf16_moe_wire_equals_plain(cuda, shards, e_loc, cap, d):
     recv = shuffle.keyed_all_to_all({"x": send.to(cuda)}, VirtualMesh(shards, cuda), _cfg())
     bits = recv["x"].cpu().view(torch.int16)  # random bits hold NaNs: compare patterns
     assert torch.equal(bits, send.view(torch.int16).transpose(0, 1))
+
+
+def _train_steps(cfg, device, shards, cpu_model, n_steps, secure_moe):
+    """`n_steps` donated train steps of a copy of `cpu_model` on `device`,
+    secure ingest from a seeded `SecureShardedSource`; (model, opt,
+    per-step metrics, per-step ChaCha launches)."""
+    from repro_torch import VirtualMesh
+    from repro_torch.crypto.keys import make_session_keys
+    from repro_torch.data.pipeline import SecureShardedSource
+    from repro_torch.data.synthetic import synthetic_tokens
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import SecureIngest, make_train_step
+
+    model = LM(cfg, shards, device, torch.float32)
+    model.load_state_dict(cpu_model.state_dict())
+    opt = adamw_init(dict(model.named_parameters()))
+    session = make_session_keys(b"\x21" * 32)
+    ingest = SecureIngest(key_words=session.words("data"),
+                          nonce_words=session.nonce_words("data", 0))
+    src = SecureShardedSource(synthetic_tokens(3000, cfg.vocab_size, seed=1), batch=4,
+                              seq=16, session=session, seed=3, device=device)
+    step = make_train_step(cfg, VirtualMesh(shards, device), secure_ingest=ingest,
+                           secure_moe=secure_moe, peak_lr=1e-3, warmup=1, total_steps=10)
+    metrics, launches, mus = [], [], []
+    for i in range(n_steps):
+        batch = src.next_batch()
+        before = ck.launches
+        model, opt, m = step(model, opt, batch, i + 1)
+        launches.append(ck.launches - before)
+        metrics.append({k: float(v) for k, v in m.items()})
+        mus.append({k: v.detach().cpu().clone() for k, v in opt["mu"].items()})
+    opt["mu_by_step"] = mus
+    return model, opt, metrics, launches
+
+
+@pytest.mark.gpu
+def test_train_step_card_equals_cpu(cuda):
+    """Reduced granite-moe (float32), secure ingest and secure MoE on 4
+    shards, two steps at lr 1e-3: losses and grad norms within rtol 1e-4 of
+    the CPU's plain versions; parameters within 1e-2·lr where the gradient
+    is at least 1e-2 of its leaf's largest at both steps (float32 sums in
+    other orders round a gradient by ~1e-6 of its leaf's scale, which Adam's
+    per-element normalisation passes into a smaller element's update at full
+    size; at step 1 the update is lr·sign(g): the rule of chip_smoke.py's
+    lm_train phase)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), 4, "cpu", torch.float32)
+    sec = _cfg()
+    want_model, want_opt, want_m, _ = _train_steps(cfg, "cpu", 4, cpu_model, 2, sec)
+    got_model, _, got_m, _ = _train_steps(cfg, cuda, 4, cpu_model, 2, sec)
+    for g, w in zip(got_m, want_m):
+        for k in ("loss", "grad_norm", "nll"):
+            assert g[k] == pytest.approx(w[k], rel=1e-4), k
+    for (k, g), (_, w) in zip(got_model.named_parameters(), want_model.named_parameters()):
+        prev, live = 0.0, True
+        for mu in want_opt["mu_by_step"]:  # mu_t - 0.9 mu_{t-1}: step t's gradient / 10
+            step_g = (mu[k] - 0.9 * prev).abs()
+            live = live & (step_g >= 1e-2 * step_g.max())
+            prev = mu[k]
+        torch.testing.assert_close(g.detach().cpu()[live], w.detach()[live], rtol=0,
+                                   atol=1e-2 * 1e-3, msg=k)
+
+
+@pytest.mark.gpu
+def test_train_secure_step_equals_plain_bit_for_bit_on_card(cuda):
+    """On the card, reduced granite-moe on 4 shards, three steps: secure MoE
+    and plain MoE give the same metrics, parameters and moments bit for bit
+    (the backward adds in a fixed order: no float atomics), and so does a
+    second secure run; a step launches the ChaCha kernel 1 + 8 times a
+    layer (the ingest decrypt; per layer 2 forward legs and 2 cotangent legs,
+    2 crypts each), the plain one once (the decrypt)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_params
+
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(2), 4, "cpu", torch.float32)
+    runs = {name: _train_steps(cfg, cuda, 4, cpu_model, 3, sec)
+            for name, sec in (("secure", _cfg()), ("plain", None), ("again", _cfg()))}
+    sm, so, smet, slaunch = runs["secure"]
+    assert slaunch == [1 + 8 * cfg.n_layers] * 3
+    assert runs["plain"][3] == [1] * 3
+    for name in ("plain", "again"):
+        m, o, met, _ = runs[name]
+        assert met == smet, name
+        for (k, a), (_, b) in zip(sm.named_parameters(), m.named_parameters()):
+            assert torch.equal(a, b), (name, k)
+        for part in ("mu", "nu"):
+            for k in so[part]:
+                assert torch.equal(so[part][k], o[part][k]), (name, part, k)
+    for i in range(cfg.n_layers):
+        assert float(so["mu"][f"layers.{i}.moe.wi"].abs().sum()) > 0
+
+
+@pytest.mark.gpu
+def test_embedding_backward_is_fixed_order_on_card(cuda):
+    """The embedding lookup's backward on the card equals the CPU's bit for
+    bit (both add each row's cotangents in token order, in float32), with
+    repeated tokens and untouched rows."""
+    from repro_torch.models.layers import _EmbedLookup
+
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(300, 40, generator=g)
+    tokens = torch.randint(0, 50, (4, 64), generator=g)
+    ct = torch.randn(4, 64, 40, generator=g).to(torch.bfloat16)
+    grads = []
+    for dev in ("cpu", cuda):
+        t = table.to(dev).requires_grad_()
+        out = _EmbedLookup.apply(t, tokens.to(dev), torch.bfloat16)
+        (gt,) = torch.autograd.grad(out, t, ct.to(dev))
+        grads.append(gt.cpu())
+    assert torch.equal(grads[0], grads[1])
+    assert not grads[0][50:].any()

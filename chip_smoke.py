@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs fifteen phases, each printing one JSON line, and a sixteenth line:
+then runs eighteen phases, each printing one JSON line, and a nineteenth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -138,6 +138,36 @@ then runs fifteen phases, each printing one JSON line, and a sixteenth line:
                  the reduced model on 4 shards card == CPU within rtol 1e-4
                  after two steps, and 2 steps + a checkpoint + 2 resumed ==
                  4 straight steps bit for bit on the card
+  lm_ssm         rwkv6-1.6b at its published config (24 layers, d_model
+  lm_hybrid      2048), zamba2-1.2b at its (38 mamba layers, one shared
+  lm_audio       attention+MLP block every 6) and whisper-base at its (6 + 6
+                 layers, d_model 512, 1,500 frames), bf16, seeded weights.
+                 Serving: one sequence's 16 decode steps after a prefill ==
+                 a prefill of the same tokens within FAMILY_CONSIST_TOL of
+                 the largest logit (rwkv, zamba2: after 4,080 of 4,096
+                 tokens; whisper: after its 4-token prompt, on the same
+                 frames); a batch of 8 x 4,096 prompt tokens (whisper: 8 x
+                 1,500 frames, a 4-token prompt, a 448-token cache) and 64
+                 sampled decode steps (whisper 128), every logit finite, no
+                 ChaCha launch; prefill ms and tokens/s, the prefill's
+                 device operations and idle share, decode ms per step, a
+                 profiled step's idle share and device operations, the
+                 prefill's operations bound and the step's bytes bound; one
+                 layer's blocked WKV == the per-token scan within 2e-4, or
+                 ssm_apply (chunk 256) == ssm_decode_step iterated within
+                 2e-2 of the largest magnitude. Training: float32 masters,
+                 remat sqrt, 4 x 4,096 tokens from the secure pipeline
+                 (whisper: 8 x 448 with encrypted frames at ctr + 2**16, the
+                 steps' counters spaced so no two share a pad; cut to 4 x
+                 1,024 past 75 GB): secure gradients and a secure step ==
+                 plain bit for bit from one seeded state, every loss and
+                 gradient finite (zamba2's a_log, dt_bias and in_proj too),
+                 ChaCha launches per secure step 1 (whisper 2); step ms,
+                 tokens/s, a profiled step's idle share and largest device
+                 items, peak memory, the step's operations bound; the
+                 kernel on the ingest wire (and the frames) == plain bit
+                 for bit against its bound; the reduced model card == CPU
+                 after two steps (lm_train's rule)
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
@@ -145,7 +175,9 @@ then runs fifteen phases, each printing one JSON line, and a sixteenth line:
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
-                 calibrate, lm_serve, lm_train; k-means: k-means, calibrate),
+                 calibrate, lm_serve, lm_train, lm_ssm, lm_hybrid,
+                 lm_audio; k-means: k-means, calibrate, and 0 on the three
+                 family paths),
                  each counted from 0
                  just before that
                  path's run, and on the serve path (by profiler: replayed
@@ -164,6 +196,7 @@ import argparse
 import contextlib
 import gc
 import io
+import itertools
 import json
 import os
 import re
@@ -172,6 +205,7 @@ import subprocess
 import sys
 import time
 import warnings
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -2010,6 +2044,560 @@ def phase_lm_train(dev):
     return out
 
 
+# lm_ssm, lm_hybrid, lm_audio: the ssm, hybrid and audio families at their
+# published configs, seeded weights, bf16 compute; served, then trained
+# (float32 masters, remat sqrt, secure ingest)
+FAMILY_PHASES = {
+    "lm_ssm": {"arch": "rwkv6-1.6b", "batch": 8, "prompt": 4096, "decode": 64,
+               "train": (4, 4096),
+               "published": {"n_layers": 24, "d_model": 2048, "n_heads": 32, "d_ff": 7168,
+                             "vocab_size": 65536}},
+    "lm_hybrid": {"arch": "zamba2-1.2b", "batch": 8, "prompt": 4096, "decode": 64,
+                  "train": (4, 4096),
+                  "published": {"n_layers": 38, "d_model": 2048, "n_heads": 32, "d_ff": 8192,
+                                "vocab_size": 32000, "ssm_state": 64, "ssm_conv": 4,
+                                "attn_every": 6}},
+    # whisper: 30 s of frames, a 4-token prompt (SOT, language, task,
+    # no-timestamps), its text context of 448 as the cache
+    "lm_audio": {"arch": "whisper-base", "batch": 8, "prompt": 4, "decode": 128, "smax": 448,
+                 "train": (8, 448),
+                 "published": {"n_layers": 6, "n_encoder_layers": 6, "d_model": 512,
+                               "n_heads": 8, "d_ff": 2048, "vocab_size": 51865,
+                               "encoder_seq": 1500, "norm": "layernorm", "act": "gelu"}},
+}
+FAMILY_SEED, FAMILY_CONSIST_STEPS, FAMILY_SCAN_T, FAMILY_TRAIN_STEPS = 0, 16, 1024, 4
+FAMILY_TRAIN_CUT = (4, 1024)  # the training batch past TRAIN_PEAK_LIMIT
+# Serving consistency at full width, one sequence: the 16th decode step's
+# logits against a prefill of the same tokens. Asserted in float32 compute
+# (the published config, weights drawn from the same seed), within
+# FAMILY_CONSIST_TOL of the prefill logits' largest magnitude: the two run
+# by other orders (blocked WKV or chunked SSD against the per-token
+# recurrence, GEMM against GEMV), ~1e-4 on the CPU at full depth, and a
+# state carried wrong moves the logits by their own size. In bf16 the same
+# comparison is measured, not held: seeded random weights make these
+# models chaotic (a 4e-3 relative perturbation of the embedding moves
+# zamba2's float32 logits by 70% of their largest, rwkv6's by 22%, at full
+# depth and d_model 256 on the CPU), so bf16 roundings taken in another
+# order move the logits by as much.
+FAMILY_CONSIST_TOL = 1e-2
+# one layer at full width: the blocked WKV against the per-token scan on the
+# same float32 inputs (tests/test_rwkv_wkv.py's 2e-4); ssm_apply (the chunked
+# SSD at chunk 256) against ssm_decode_step iterated, whose bf16 projections
+# (GEMV per token against one GEMM) differ in the last bit: within 2e-2 of
+# the largest magnitude
+WKV_TOL, SSD_TOL = 2e-4, 2e-2
+
+
+def family_prefill_flops(cfg, b: int, t: int) -> dict:
+    """Operations of one prefill as the port computes them, 2 per
+    multiply-add: every matrix product of the layers, the scans' products
+    (rwkv: per token and head the intra-block pairs and their values, the
+    carried state's product and the state increment; zamba2: C·B, the
+    intra-chunk product, the chunk's state increment and the inter-chunk
+    product), the shared block's full-square attention chunks, whisper's
+    encoder over its frames and the cross K/V of every decoder layer, and
+    the last token's unembedding."""
+    from repro_torch.models.rwkv import DECAY_RANK, WKV_BLOCK, rwkv_dims
+    from repro_torch.models.ssm import HEAD_P, ssm_dims
+
+    n, d, L, dh = b * t, cfg.d_model, cfg.n_layers, cfg.head_dim
+    attn_proj = 2 * cfg.n_heads * dh * d + 2 * cfg.n_kv_heads * dh * d  # q, o; k, v
+    mlp = 3 * d * cfg.d_ff  # gated: wi, wg, wo
+    out = {}
+    if cfg.family == "ssm":
+        h, dk = rwkv_dims(cfg)
+        out["projections"] = 2 * n * (6 * d * d + 2 * d * cfg.d_ff + 2 * d * DECAY_RANK) * L
+        out["wkv"] = 2 * n * h * (2 * WKV_BLOCK * dk + 2 * dk * dk) * L
+    elif cfg.family == "hybrid":
+        d_inner, h = ssm_dims(cfg)
+        nst, q = cfg.ssm_state, 256
+        while t % q:
+            q //= 2
+        n_inv = L // cfg.attn_every
+        out["projections"] = 2 * n * d * (3 * d_inner + 2 * nst + h) * L
+        out["ssd"] = 2 * n * (q * nst + h * q * HEAD_P + 2 * h * nst * HEAD_P) * L
+        out["shared_block"] = 2 * n * (attn_proj + mlp) * n_inv
+        out["attention"] = 2 * 2 * b * cfg.n_heads * t * t * dh * n_inv
+    else:
+        s, le = cfg.encoder_seq, cfg.n_encoder_layers
+        out["encoder"] = (2 * b * s * (attn_proj + mlp) + 2 * 2 * b * cfg.n_heads * s * s * dh) * le
+        out["cross_kv"] = 2 * b * s * 2 * cfg.n_kv_heads * dh * d * L
+        out["decoder"] = (2 * n * (attn_proj + 2 * cfg.n_heads * dh * d + mlp)
+                          + 2 * 2 * b * cfg.n_heads * t * (t + s) * dh) * L
+    out["unembed"] = 2 * b * d * cfg.padded_vocab
+    out["total"] = sum(out.values())
+    return out
+
+
+def family_train_flops(cfg, b: int, t: int) -> dict:
+    """3 x the forward (as `family_prefill_flops`, every token unembedded);
+    remat's recomputation is not counted."""
+    fwd = family_prefill_flops(cfg, b, t)
+    fwd["unembed"] = 2 * b * t * cfg.d_model * cfg.padded_vocab
+    fwd["total"] = sum(v for k, v in fwd.items() if k != "total")
+    return {k: 3 * v for k, v in fwd.items()}
+
+
+def family_decode_bytes(model, cfg, cache, kv_len: int) -> int:
+    """Bytes one decode step must move: every weight once, the recurrent
+    states read and written, the K/V of the kv_len positions attended read
+    and the new K/V written, the encoder's cross K/V read, the float32
+    logits written."""
+    size = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    states = sum(size.get(k, 0) for k in ("tshift", "wkv", "cshift", "ssm_h", "conv"))
+    kv = sum(size[k] * (kv_len + 1) // cache[k].shape[2]
+             for k in ("k", "v", "attn_k", "attn_v") if k in cache)
+    cross = size.get("xk", 0) + size.get("xv", 0)
+    return weights + 2 * states + kv + cross + cache["pos"].shape[0] * cfg.padded_vocab * 4
+
+
+def _profile_ops(fn):
+    """fn under torch.profiler: (result, host ms to a synchronise, device
+    busy ms (None when the profiler saw no device activity), the top device
+    operations by ms, the number of device operations)."""
+    (out, s), events = _device_events(lambda: timed(fn))
+    by_name: dict = {}
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy = sum(ms for _, ms in events) if events else None
+    return out, 1e3 * s, busy, [[name[:80], ms] for name, ms in top], len(events)
+
+
+def family_scan_check(dev, cfg, model) -> dict:
+    """One layer of the full model, B = 1, T = FAMILY_SCAN_T, its bf16 input
+    normalised as the block does: rwkv's blocked WKV against the per-token
+    scan on the same float32 r, k, v, w; zamba2's ssm_apply (the chunked
+    SSD at chunk 256) against ssm_decode_step iterated."""
+    from repro_torch.models import rwkv, ssm
+    from repro_torch.models.layers import apply_norm
+
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 3)
+    x = torch.randn((1, FAMILY_SCAN_T, cfg.d_model), generator=g, device=dev)
+    p = model.layers[0]
+    hn = apply_norm(cfg, p.ln1, x.to(torch.bfloat16))
+    if cfg.family == "ssm":
+        r, k, v, w, _ = rwkv.time_mix_inputs(cfg, p.tmix, hn)
+        s0 = torch.zeros((1, r.shape[2], r.shape[3], r.shape[3]), device=dev)
+        (yb, sb), blocked_s = timed(lambda: rwkv._wkv_blocked(r, k, v, w, p.tmix.u, s0))
+        (ys, ss), scan_s = timed(lambda: rwkv._wkv_scan(r, k, v, w, p.tmix.u, s0, 256))
+        ok = all(torch.allclose(a, b_, rtol=WKV_TOL, atol=WKV_TOL) for a, b_ in ((yb, ys), (sb, ss)))
+        check(ok, f"lm_ssm: blocked WKV != per-token scan within {WKV_TOL} (max diff "
+                  f"{float((yb - ys).abs().max())})")
+        return {"form": "_wkv_blocked vs _wkv_scan", "T": FAMILY_SCAN_T,
+                "max_abs_diff_y": float((yb - ys).abs().max()),
+                "max_abs_diff_state": float((sb - ss).abs().max()),
+                "max_abs_y": float(ys.abs().max()), "tolerance": WKV_TOL,
+                "blocked_ms": 1e3 * blocked_s, "scan_ms": 1e3 * scan_s}
+    (out, (h_end, _)), apply_s = timed(lambda: ssm.ssm_apply(cfg, p.ssm, hn))
+
+    def iterate():
+        d_inner, h = ssm.ssm_dims(cfg)
+        hs = torch.zeros((1, h, cfg.ssm_state, ssm.HEAD_P), device=dev)
+        conv = torch.zeros((1, cfg.ssm_conv - 1, d_inner), dtype=hn.dtype, device=dev)
+        outs = []
+        for i in range(FAMILY_SCAN_T):
+            o, hs, conv = ssm.ssm_decode_step(cfg, p.ssm, hn[:, i:i + 1], hs, conv)
+            outs.append(o)
+        return torch.cat(outs, 1), hs
+
+    (outs, hs), step_s = timed(iterate)
+    rel_out = float((out.float() - outs.float()).abs().max() / outs.float().abs().max())
+    rel_h = float((h_end - hs).abs().max() / hs.abs().max())
+    check(rel_out <= SSD_TOL and rel_h <= SSD_TOL,
+          f"lm_hybrid: ssm_apply != ssm_decode_step iterated (relative {rel_out}, {rel_h})")
+    return {"form": "ssm_apply (chunk 256) vs ssm_decode_step iterated", "T": FAMILY_SCAN_T,
+            "max_rel_diff_out": rel_out, "max_rel_diff_state": rel_h, "tolerance": SSD_TOL,
+            "apply_ms": 1e3 * apply_s, "iterated_ms": 1e3 * step_s}
+
+
+def family_consistency(dev, cfg, spec, model=None) -> dict:
+    """One sequence: 16 decode steps after a prefill against a prefill of
+    the same tokens (rwkv, zamba2: after 4,080 of 4,096 tokens, a multiple
+    of 16, so the blocked WKV and the chunked SSD run; whisper: after its
+    prompt, on the same frames), every logit finite; `model` None draws the
+    config's model from the phase's seed."""
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    audio, vocab = cfg.family == "audio", cfg.vocab_size
+    if model is None:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(FAMILY_SEED), 1, dev)
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 2)
+    n_tok = spec["prompt"] + FAMILY_CONSIST_STEPS if audio else spec["prompt"]
+    head = n_tok - FAMILY_CONSIST_STEPS
+    toks = torch.randint(0, vocab, (1, n_tok), generator=g, device=dev, dtype=torch.int32)
+    fr = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g, device=dev) if audio else None
+    smax = spec.get("smax", n_tok + 1)
+    cache = init_cache(cfg, 1, smax, dev)
+    lg = prefill(cfg, model, toks[:, :head], cache, frames=fr)
+    ok = [torch.isfinite(lg[:, :vocab]).all()]
+    for i in range(head, n_tok):
+        lg = decode_step(cfg, model, cache, toks[:, i:i + 1])
+        ok.append(torch.isfinite(lg[:, :vocab]).all())
+    full = prefill(cfg, model, toks, init_cache(cfg, 1, smax, dev), frames=fr).float()
+    ok.append(torch.isfinite(full[:, :vocab]).all())
+    check(bool(torch.stack(ok).all()), f"{cfg.name}: non-finite logits ({cfg.dtype}, one sequence)")
+    diff = float((lg - full)[:, :vocab].abs().max())
+    scale = float(full[:, :vocab].abs().max())
+    return {"dtype": cfg.dtype, "prefill_tokens": head, "decode_steps": FAMILY_CONSIST_STEPS,
+            "against_prefill_tokens": n_tok, "max_abs_diff": diff, "max_abs_logit": scale,
+            "rel_diff": diff / scale, "logits_finite": True,
+            "argmax_equal": bool(torch.equal(lg[:, :vocab].argmax(-1),
+                                             full[:, :vocab].argmax(-1)))}
+
+
+def _family_serve(dev, cfg, spec) -> dict:
+    """The serving half of a family phase (see `phase_lm_family`)."""
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+    from repro_torch.serve_lm import sample
+
+    audio, vocab = cfg.family == "audio", cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(FAMILY_SEED), 1, dev))
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1)
+
+    def finite(lg):
+        return torch.isfinite(lg[:, :vocab]).all()
+
+    # 1. one sequence: decode after a prefill == a prefill of the same tokens
+    consist = {"float32": family_consistency(dev, replace(cfg, dtype="float32"), spec)}
+    check(consist["float32"]["rel_diff"] <= FAMILY_CONSIST_TOL,
+          f"{cfg.name}: float32 decode after prefill != prefill ({consist['float32']})")
+    consist["float32"]["tolerance"] = FAMILY_CONSIST_TOL
+    consist["bfloat16"] = family_consistency(dev, cfg, spec, model)
+
+    # 2. the batch: prefill, then sampled decode steps
+    b, tp, n_dec = spec["batch"], spec["prompt"], spec["decode"]
+    prompts = torch.randint(0, vocab, (b, tp), generator=g, device=dev, dtype=torch.int32)
+    frames = None
+    if audio:
+        frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g, device=dev)
+    cache = init_cache(cfg, b, spec.get("smax", tp + n_dec + 4), dev)
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    launches = ck.launches
+
+    def run_prefill():
+        return prefill(cfg, model, prompts, cache, frames=frames)
+
+    lg, first_s = timed(run_prefill)
+    runs = [timed(run_prefill)[1] for _ in range(2)]
+    pre_lg, pre_ms, pre_busy, pre_top, pre_ops = _profile_ops(run_prefill)
+    check(torch.equal(pre_lg, lg) and bool(finite(lg)),
+          f"{cfg.name}: prefill logits non-finite or not repeatable")
+    prefill_s = min(runs)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        lg = decode_step(cfg, model, cache, sample(lg, vocab, 0.8, g))
+        ok &= finite(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(ok), f"{cfg.name}: non-finite decode logits")
+    kv_len = int(cache["pos"][0])
+    nxt = sample(lg, vocab, 0.8, g)
+    _, dec_ms, dec_busy, dec_top, dec_ops = _profile_ops(
+        lambda: decode_step(cfg, model, cache, nxt))
+    check(ck.launches == launches, f"{cfg.name}: serving launched the ChaCha kernel")
+    flops = family_prefill_flops(cfg, b, tp)
+    dec_bytes = family_decode_bytes(model, cfg, cache, kv_len)
+    del cache, lg
+    scan = None if audio else family_scan_check(dev, cfg, model)
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    return {"param_bytes": param_bytes, "cache_bytes": cache_bytes, "init_s": init_s,
+            "consistency": consist, "batch": b, "prompt_tokens": tp, "decode_steps": n_dec,
+            "first_prefill_s": first_s, "prefill_s_runs": runs, "prefill_ms": 1e3 * prefill_s,
+            "prompt_tokens_per_s": b * tp / prefill_s,
+            "profiled_prefill_ms": pre_ms, "prefill_device_busy_ms": pre_busy,
+            "prefill_device_idle_share": None if pre_busy is None else 1 - pre_busy / pre_ms,
+            "prefill_device_ops": pre_ops, "prefill_top_device_ops": pre_top,
+            "prefill_flops": flops, "prefill_bound_ms": 1e3 * flops["total"] / PEAK_BF16_S,
+            "prefill_bound_by": "operations",
+            "decode_ms_per_step": 1e3 * decode_s / n_dec,
+            "decode_tokens_per_s": b * n_dec / decode_s, "decode_kv_len": kv_len,
+            "profiled_decode_step_ms": dec_ms, "decode_device_busy_ms": dec_busy,
+            "decode_device_idle_share": None if dec_busy is None else 1 - dec_busy / dec_ms,
+            "decode_device_ops": dec_ops, "decode_top_device_ops": dec_top,
+            "decode_step_bytes": dec_bytes, "decode_bound_ms": 1e3 * dec_bytes / PEAK_BYTES_S,
+            "decode_bound_by": "bytes", "scan_vs_recurrence": scan,
+            "serve_peak_memory_bytes": peak, "chacha_launches_serving": 0}
+
+
+def _family_batches(cfg, dev, batch: int, seq: int, seed: int):
+    """(ingest, draw): draw() -> (secure batch, the same batch in plaintext),
+    the tokens drawn as the data pipeline draws them. rwkv and zamba2: the
+    secure source's ciphertext (one ChaCha launch a batch on the card).
+    whisper: float32 frames from a numpy seed beside the tokens, both
+    encrypted here (two launches), the frames at ctr + 2**16 as the step
+    decrypts them; the steps' ctr are spaced by 2**16 + the frames' blocks,
+    so that no two steps share a pad."""
+    from repro_torch.crypto.ctr import encrypt_array, words_for
+    from repro_torch.train.step import FRAMES_CTR_OFFSET
+
+    ingest, src, plain = _train_setup(cfg, dev, batch, seq, 1, seed)
+    if cfg.family != "audio":
+        return ingest, lambda: (src.next_batch(),
+                                {"tokens": torch.from_numpy(next(plain)).to(dev)})
+    rng = np.random.default_rng(seed + 2)
+    shape = (batch, cfg.encoder_seq, cfg.d_model)
+    stride = FRAMES_CTR_OFFSET + -(-words_for(shape, torch.float32) // 16)
+    count = itertools.count()
+    kw, nw = ingest.key_words, ingest.nonce_words
+
+    def draw():
+        toks = torch.from_numpy(next(plain)).to(dev)
+        frames = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        ctr = next(count) * stride
+        ct = {"tokens": encrypt_array(toks, kw, nw, ctr),
+              "frames": encrypt_array(frames, kw, nw, ctr + FRAMES_CTR_OFFSET),
+              "ctr": torch.tensor(ctr, dtype=torch.int64, device=dev)}
+        return ct, {"tokens": toks, "frames": frames}
+
+    return ingest, draw
+
+
+def _family_train_at(dev, cfg, batch: int, seq: int):
+    """The training half of a family phase at one batch (see
+    `phase_lm_family`): (figures, the first batch's plaintext, the ingest)."""
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.models.lm import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import decrypt_batch, make_train_step, value_and_grad
+
+    ingest, draw = _family_batches(cfg, dev, batch, seq, TRAIN_SEED)
+    kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=100)
+    secure_step = make_train_step(cfg, secure_ingest=ingest, **kw)
+    plain_step = make_train_step(cfg, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED), 1, dev,
+                           torch.float32)
+
+    ck.launches = 0  # the path: the pipeline's encryptions and the steps' decrypts
+    model, init_s = timed(fresh)
+    init_digest = _digest(model.parameters())
+    param_count = sum(p.numel() for p in model.parameters())
+    # 1. one batch's gradients from the seeded state, secure == plain
+    ct1, plain1 = draw()
+    lp, mp, gp = value_and_grad(cfg, model, plain1)
+    ls, ms_, gs = value_and_grad(cfg, model, decrypt_batch(ct1, ingest))
+    check(torch.equal(lp, ls) and all(torch.equal(mp[k], ms_[k]) for k in mp),
+          f"{cfg.name}: secure loss != plain loss, bit for bit")
+    check(all(torch.equal(gp[k], gs[k]) for k in gp),
+          f"{cfg.name}: secure gradients != plain gradients, bit for bit")
+    del gs
+    finite = torch.stack([torch.isfinite(g).all() for g in gp.values()]).all()
+    check(bool(finite) and bool(torch.isfinite(lp)), f"{cfg.name}: non-finite loss or gradient")
+    watched = {}
+    if cfg.family == "hybrid":  # NaN in the reference at this length
+        for leaf in ("a_log", "dt_bias", "in_proj"):
+            gl = [gp[f"layers.{i}.ssm.{leaf}"] for i in range(cfg.n_layers)]
+            watched[leaf] = {"finite": True, "max_abs": float(max(g.abs().max() for g in gl)),
+                             "nonzero_layers": sum(bool(g.any()) for g in gl)}
+    del gp
+
+    # 2. a plain step and a secure step from the same seeded state
+    opt = adamw_init(dict(model.named_parameters()))
+    (model, opt, m_plain), plain_first_s = timed(lambda: plain_step(model, opt, plain1, 1))
+    plain_digest, m_plain = _state_digest(model, opt), {k: float(v) for k, v in m_plain.items()}
+    del model, opt
+    model = fresh()
+    check(_digest(model.parameters()) == init_digest, f"{cfg.name}: the seeded init differs")
+    opt = adamw_init(dict(model.named_parameters()))
+    before = ck.launches
+    (model, opt, m1), first_s = timed(lambda: secure_step(model, opt, ct1, 1))
+    launches = [ck.launches - before]
+    m1 = {k: float(v) for k, v in m1.items()}
+    check(_state_digest(model, opt) == plain_digest and m1 == m_plain,
+          f"{cfg.name}: the secure step's parameters, moments or metrics != the plain step's")
+
+    # 3. more steps, secure and plain in turns
+    metrics, step_s, pipeline = [m1], {"secure": [], "plain": []}, 0
+    for i, name in zip(range(2, 2 + FAMILY_TRAIN_STEPS), ("secure", "plain") * 4):
+        before = ck.launches
+        ct, pl = draw()
+        pipeline += ck.launches - before
+        before = ck.launches
+        if name == "secure":
+            (model, opt, m), s = timed(lambda: secure_step(model, opt, ct, i))
+            launches.append(ck.launches - before)
+        else:
+            (model, opt, m), s = timed(lambda: plain_step(model, opt, pl, i))
+            check(ck.launches == before, f"{cfg.name}: a plain step launched the ChaCha kernel")
+        step_s[name].append(s)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for m in metrics:
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"{cfg.name}: non-finite loss or gradient norm {m}")
+    per_step = 2 if cfg.family == "audio" else 1
+    check(launches == [per_step] * len(launches),
+          f"{cfg.name}: ChaCha launches per secure step {launches}, not {per_step}")
+    path_launches = ck.launches
+    ct, _ = draw()
+    _, prof_ms, busy, top, n_ops = _profile_ops(lambda: secure_step(model, opt, ct, 10))
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"batch": batch, "seq": seq, "param_count": param_count,
+            "state_bytes": 4 * 4 * param_count, "init_s": init_s, "metrics": metrics,
+            "first_secure_step_s": first_s, "first_plain_step_s": plain_first_s,
+            "step_s": step_s, "launches_per_secure_step": launches,
+            "pipeline_launches": pipeline, "path_launches": path_launches,
+            "watched_gradients": watched, "profiled_step_ms": prof_ms,
+            "device_busy_ms": busy, "device_idle_share": None if busy is None
+            else 1 - busy / prof_ms, "step_device_ops": n_ops, "top_device_ops": top,
+            "peak_memory_bytes": peak}, plain1, ingest
+
+
+def ingest_crypt(dev, x, ingest, ctr: int, reps: int) -> dict:
+    """The ChaCha20 kernel on an ingest wire (one tensor of the batch, at
+    counter ctr): the card's `encrypt_array` == the CPU's plain ARX bit for
+    bit; device ms per launch (`kernel_device_ms`) against the bytes bound
+    (the words read and written once over 3.35 TB/s) and the integer
+    operations bound."""
+    from repro_torch.crypto.ctr import encrypt_array, words_for
+
+    kw, nw = ingest.key_words, ingest.nonce_words
+    got = encrypt_array(x, kw, nw, ctr).cpu().view(torch.uint8)  # bits: floats may be NaN
+    check(torch.equal(got, encrypt_array(x.cpu(), kw, nw, ctr).view(torch.uint8)),
+          f"chacha20 kernel != plain on the {tuple(x.shape)} ingest wire")
+    words = words_for(x.shape, x.dtype)
+    blocks = -(-words // 16)
+    nbytes, ops_ = 2 * 4 * words, blocks * CHACHA_OPS_PER_BLOCK
+    ms = kernel_device_ms(lambda: encrypt_array(x, kw, nw, ctr), reps)
+    return {"shape": list(x.shape), "dtype": str(x.dtype).replace("torch.", ""),
+            "wire_bytes": 4 * words, "blocks": blocks, "bit_exact": True, "kernel_ms": ms,
+            "bound_ms": 1e3 * max(nbytes / PEAK_BYTES_S, ops_ / PEAK_I32_S),
+            "bound_by": "operations" if ops_ / PEAK_I32_S > nbytes / PEAK_BYTES_S else "bytes"}
+
+
+def family_train_small(dev, arch: str) -> dict:
+    """The reduced config (float32), secure ingest: two steps from one
+    seeded state on the card and on the CPU (plain versions), held by
+    lm_train's rule (TRAIN_SMALL_TOL, TRAIN_SMALL_PARAM_ATOL where
+    `adam_steady_mask`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(arch).reduced()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(5), 1, "cpu", torch.float32)
+
+    def run(device):
+        model = LM(cfg, 1, device, torch.float32)
+        model.load_state_dict(cpu_model.state_dict())
+        opt = adamw_init(dict(model.named_parameters()))
+        ingest, draw = _family_batches(cfg, device, 4, 16, 7)
+        step = make_train_step(cfg, secure_ingest=ingest, peak_lr=1e-3, warmup=1,
+                               total_steps=10)
+        losses, mus = [], []
+        for i in range(2):
+            model, opt, m = step(model, opt, draw()[0], i + 1)
+            losses.append(float(m["loss"]))
+            mus.append({k: v.detach().cpu().clone() for k, v in opt["mu"].items()})
+        return model, losses, mus
+
+    card_model, card_losses, _ = run(dev)
+    cpu_model2, cpu_losses, cpu_mus = run("cpu")
+    check(all(np.isclose(a, b, rtol=TRAIN_SMALL_TOL, atol=0)
+              for a, b in zip(card_losses, cpu_losses)),
+          f"{arch}: reduced losses card {card_losses} != CPU {cpu_losses}")
+    worst, compared = 0.0, 0
+    for (k, a), (_, b) in zip(card_model.named_parameters(), cpu_model2.named_parameters()):
+        live = adam_steady_mask([mu[k] for mu in cpu_mus])
+        diff = (a.detach().cpu() - b.detach())[live].abs()
+        check(bool((diff <= TRAIN_SMALL_PARAM_ATOL).all()),
+              f"{arch}: reduced {k} card != CPU (max diff {float(diff.max())})")
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        compared += int(live.sum())
+    return {"arch": cfg.name + " (reduced)", "steps": 2, "losses_card": card_losses,
+            "losses_cpu": cpu_losses, "max_abs_param_diff": worst,
+            "params_compared": compared, "loss_rtol": TRAIN_SMALL_TOL,
+            "param_atol": TRAIN_SMALL_PARAM_ATOL,
+            "params_compared_where": "gradient >= 1e-2 x the leaf's largest at both steps"}
+
+
+def phase_lm_family(dev, phase: str) -> dict:
+    """One of the ssm, hybrid and audio families at its published config
+    (FAMILY_PHASES), bf16 compute, weights from a seeded generator.
+
+    Serving: one sequence, 16 decode steps after a prefill == a prefill of
+    the same tokens within FAMILY_CONSIST_TOL (rwkv and zamba2: a prefill of
+    4,080 tokens, a multiple of 16, so the blocked WKV and the chunked SSD
+    run; whisper: prompt + 16 tokens on the same frames); the batch's
+    prefill (profiled: device operations, idle share) and sampled decode
+    steps; every logit finite; no ChaCha launch. One layer's scan against
+    its recurrence (`family_scan_check`). Training: float32 masters, remat
+    sqrt, batches from the secure pipeline (cut to FAMILY_TRAIN_CUT past
+    TRAIN_PEAK_LIMIT): secure gradients == plain and a secure step == a
+    plain step bit for bit from one seeded state; every loss and gradient
+    finite (zamba2's a_log, dt_bias and in_proj among them); ChaCha launches
+    per secure step 1 (whisper 2: the frames); a profiled step; the kernel
+    on the ingest wire (and the frames) == plain bit for bit against its
+    bound; the reduced model card == CPU after two steps."""
+    from dataclasses import asdict
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.models.lm import _remat_groups
+
+    t_phase = time.perf_counter()
+    spec = FAMILY_PHASES[phase]
+    cfg = get_config(spec["arch"])
+    fields = asdict(cfg)
+    check(all(fields[k] == v for k, v in spec["published"].items()),
+          f"{phase}: not the published {spec['arch']} config")
+    ck.launches = kk.launches = 0  # the path: serving, then training
+    serve = _family_serve(dev, cfg, spec)
+    batch, seq = spec["train"]
+    batch_cut = None
+    train, plain, ingest = _family_train_at(dev, cfg, batch, seq)
+    if train["peak_memory_bytes"] > TRAIN_PEAK_LIMIT:
+        batch_cut = {"from": [batch, seq], "peak_bytes": train["peak_memory_bytes"]}
+        batch, seq = FAMILY_TRAIN_CUT
+        train, plain, ingest = _family_train_at(dev, cfg, batch, seq)
+    launches = {"chacha20": train["path_launches"], "kmeans_assign": kk.launches}
+    check(launches["kmeans_assign"] == 0, f"{phase}: the k-means kernel ran")
+    chacha = {"tokens": ingest_crypt(dev, plain["tokens"], ingest, 0, 20)}
+    if "frames" in plain:
+        chacha["frames"] = ingest_crypt(dev, plain["frames"], ingest, 1 << 16, 20)
+    del plain
+    secure_s = float(np.median(train["step_s"]["secure"]))
+    plain_s = float(np.median(train["step_s"]["plain"]))
+    tokens = batch * seq
+    flops = family_train_flops(cfg, batch, seq)
+    small = family_train_small(dev, spec["arch"])
+    out = {"phase": phase, "arch": cfg.name, "config": "full (published)",
+           "family": cfg.family, "dtype": cfg.dtype, "param_dtype": "float32",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "serve": serve,
+           "train": {**train, "batch_cut": batch_cut, "remat": cfg.remat,
+                     "remat_groups": _remat_groups(cfg, cfg.n_layers),
+                     "step_ms": 1e3 * secure_s, "plain_step_ms": 1e3 * plain_s,
+                     "secure_over_plain": secure_s / plain_s,
+                     "tokens_per_s": tokens / secure_s, "flops": flops,
+                     "step_bound_ms": 1e3 * flops["total"] / PEAK_BF16_S,
+                     "step_bound_by": "operations", "chacha": chacha,
+                     "secure_equals_plain": True, "reduced": small},
+           "peak_memory_bytes": max(serve["serve_peak_memory_bytes"],
+                                    train["peak_memory_bytes"]),
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
 SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2422,6 +3010,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tr = phase_lm_train(dev)
     freed["lm_train"] = collect_garbage()
+    fam = {}
+    for phase in FAMILY_PHASES:
+        torch.cuda.empty_cache()
+        fam[phase] = phase_lm_family(dev, phase)
+        freed[phase] = collect_garbage()
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -2431,7 +3024,8 @@ def main(argv=None) -> int:
                "enclave": enc["launches"]["chacha20"],
                "calibrate": cal["launches"]["chacha20"],
                "lm_serve": lm["launches"]["chacha20"],
-               "lm_train": tr["launches"]["chacha20"]}
+               "lm_train": tr["launches"]["chacha20"],
+               **{phase: res["launches"]["chacha20"] for phase, res in fam.items()}}
     check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
@@ -2458,6 +3052,12 @@ def main(argv=None) -> int:
          "ms_lm_train_wire": tr["chacha"]["kernel_ms"],
          "bound_ms_lm_train_wire": tr["chacha"]["bound_ms"],
          "lanes_lm_train_wire": tr["chacha"]["lanes"],
+         "launches_per_secure_step_by_family": {
+             phase: res["train"]["launches_per_secure_step"][0] for phase, res in fam.items()},
+         "ingest_wire": {phase: {name: {k: c[k] for k in ("wire_bytes", "kernel_ms", "bound_ms",
+                                                           "bound_by")}
+                                 for name, c in res["train"]["chacha"].items()}
+                         for phase, res in fam.items()},
          "ms_wordcount_wire": wc["chacha"]["kernel_ms"],
          "bound_ms_wordcount_wire": wc["chacha"]["bound_ms"],
          "lanes_wordcount_wire": wc["chacha"]["lanes"],
@@ -2479,7 +3079,9 @@ def main(argv=None) -> int:
          "launches": fit["launches"]["kmeans_assign"],
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
          "launches_by_path": {"kmeans": fit["launches"]["kmeans_assign"],
-                              "calibrate": cal["launches"]["kmeans_assign"]},
+                              "calibrate": cal["launches"]["kmeans_assign"],
+                              **{phase: res["launches"]["kmeans_assign"]
+                                 for phase, res in fam.items()}},
          "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],

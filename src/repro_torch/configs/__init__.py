@@ -1,9 +1,7 @@
 """Config registry: get_config("<arch-id>") for every assigned architecture.
 
 The port's own copy of `repro.configs`: the same ten configs, field for
-field. The model code and the serving engine take the dense, vlm and moe
-families; the others are here so that the registry is whole, and
-`repro_torch.models.init_params` raises NotImplementedError for them.
+field, every one served and trained by the port.
 """
 
 from __future__ import annotations

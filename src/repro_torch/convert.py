@@ -60,23 +60,30 @@ def _named_leaves(tree, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+# the reference's stacked trees (L, ...) and the config field giving each depth
+STACKS = {"layers": "n_layers", "decoder": "n_layers", "encoder": "n_encoder_layers"}
+
+
 def lm_params(cfg, np_params, n_model: int = 1) -> dict:
     """The port model's `state_dict` (CPU tensors, the reference's dtypes)
     from the reference's `init_params(cfg, key, n_model)` tree with numpy
-    leaves: the stacked `layers` leaves (L, ...) are sliced into
-    `layers.<i>.*`, everything else keeps its path. Load it with
-    `LM(cfg, n_model, device).load_state_dict(...)`, which casts each
-    matrix into the model's compute dtype."""
+    leaves: the stacked `layers`, `encoder` and `decoder` leaves (L, ...)
+    are sliced into `<stack>.<i>.*`, each stack's depth checked against
+    its config field; everything else (`shared_attn`, `enc_norm`, ...)
+    keeps its path. Load it with `LM(cfg, n_model, device).load_state_dict(...)`,
+    which casts each matrix into the model's compute dtype."""
     check_family(cfg)
     out = {}
     for name, leaf in _named_leaves(np_params):
         a = np.asarray(leaf)
-        if name.startswith("layers."):
-            if a.shape[0] != cfg.n_layers:
-                raise ValueError(f"{name}: {a.shape[0]} stacked layers, config has "
-                                 f"{cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                out[f"layers.{i}.{name[len('layers.'):]}"] = to_tensor(np.array(a[i]), "cpu")
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
+            depth = getattr(cfg, STACKS[stack])
+            if a.shape[0] != depth:
+                raise ValueError(f"{name}: {a.shape[0]} stacked layers, config has {depth} "
+                                 f"({STACKS[stack]})")
+            for i in range(depth):
+                out[f"{stack}.{i}.{rest}"] = to_tensor(np.array(a[i]), "cpu")
         else:
             out[name] = to_tensor(np.array(a), "cpu")
     if cfg.family == "moe":

@@ -110,6 +110,17 @@ def self_attention(cfg, params, x, positions, k_valid=None, causal=None, kv=None
     return out_proj(cfg, params, ctx)
 
 
+def cross_attention(cfg, params, x, enc_kv, positions, enc_valid=None):
+    """Decoder->encoder attention; enc_kv = (k, v) projected encoder states
+    (B, S, Hkv, Dh), q without rope, no causal mask."""
+    q = project_q(cfg, params, x, positions, apply_rope=False)
+    k, v = enc_kv
+    s = k.shape[1]
+    k_pos = torch.arange(s, device=x.device)[None].expand(x.shape[0], s)
+    ctx = attend(cfg, q, k, v, positions, k_pos, enc_valid, causal=False)
+    return out_proj(cfg, params, ctx)
+
+
 def decode_self_attention(cfg, params, x, cache_k, cache_v, position):
     """One-token decode: x (B, 1, d); cache (B, S, Hkv, Dh); position (B,).
 

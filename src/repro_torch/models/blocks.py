@@ -1,9 +1,9 @@
 """Block composition per architecture family (pre-norm residual blocks).
 
-Counterpart of `repro/models/blocks.py` for the kinds the port has: `attn`
-(the dense and vlm families) and `moe`, and the remat policy
-(`remat_wrap`). The `mamba`, `rwkv`, `enc` and `dec_cross` kinds are
-ROADMAP item 10.
+Counterpart of `repro/models/blocks.py`: the kinds `attn` (the dense and vlm
+families, hybrid's shared block), `enc` (audio's encoder), `moe`, `mamba`
+(hybrid), `rwkv` (ssm) and `dec_cross` (audio's decoder), with the
+reference's parameter names, and the remat policy (`remat_wrap`).
 """
 
 from __future__ import annotations
@@ -16,26 +16,36 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP, Norm, apply_norm, mlp_apply
 
-KINDS = ("attn", "moe")
+KINDS = ("attn", "enc", "moe", "mamba", "rwkv", "dec_cross")
 
 
 class Block(nn.Module):
     def __init__(self, cfg, kind: str, device, n_model: int = 1):
         super().__init__()
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP item 10); the port "
-                f"has {KINDS}")
+            raise ValueError(f"unknown block kind {kind!r}; the kinds are {KINDS}")
         d = cfg.d_model
         self.ln1 = Norm(d, device)
+        if kind == "mamba":
+            self.ssm = ssm_mod.SSM(cfg, device)
+            return
+        if kind == "rwkv":  # `tmix` holds both time-mix and channel-mix (cm_*)
+            self.tmix = rwkv_mod.RWKV(cfg, device)
+            self.ln2 = Norm(d, device)
+            return
         self.attn = attn.Attention(cfg, device)
+        if kind == "dec_cross":
+            self.lnx = Norm(d, device)
+            self.xattn = attn.Attention(cfg, device)
         self.ln2 = Norm(d, device)
-        if kind == "attn":
-            self.mlp = MLP(cfg, d, cfg.d_ff, device)
-        else:
+        if kind == "moe":
             self.moe = moe_mod.MoE(cfg, device, n_model)
+        else:
+            self.mlp = MLP(cfg, d, cfg.d_ff, device)
 
 
 def block_init(cfg, kind: str, n_model: int = 1, device=None) -> Block:
@@ -83,3 +93,27 @@ def apply_moe_block(cfg, p, x, positions, mesh=None, secure=None):
     y, aux, dropped = moe_mod.moe_apply(cfg, p.moe, apply_norm(cfg, p.ln2, x), mesh=mesh,
                                         secure=secure)
     return x + y, aux, dropped
+
+
+def apply_mamba_block(cfg, p, x, h0=None, conv0=None):
+    y, (h_end, conv_end) = ssm_mod.ssm_apply(cfg, p.ssm, apply_norm(cfg, p.ln1, x), h0, conv0)
+    return x + y, h_end, conv_end
+
+
+def apply_rwkv_block(cfg, p, x, states=None):
+    """states: (tmix shift, wkv, cmix shift) or None. Returns (x, states):
+    the shifts are the NORMALISED inputs' last tokens."""
+    s = states or (None, None, None)
+    y, (tshift, wkv) = rwkv_mod.rwkv_time_mix(cfg, p.tmix, apply_norm(cfg, p.ln1, x), s[0], s[1])
+    x = x + y
+    y, cshift = rwkv_mod.rwkv_channel_mix(cfg, p.tmix, apply_norm(cfg, p.ln2, x), s[2])
+    return x + y, (tshift, wkv, cshift)
+
+
+def apply_dec_cross_block(cfg, p, x, positions, enc_kv, enc_valid=None):
+    h = attn.self_attention(cfg, p.attn, apply_norm(cfg, p.ln1, x), positions)
+    x = x + h
+    h = attn.cross_attention(cfg, p.xattn, apply_norm(cfg, p.lnx, x), enc_kv, positions,
+                             enc_valid)
+    x = x + h
+    return x + mlp_apply(cfg, p.mlp, apply_norm(cfg, p.ln2, x))

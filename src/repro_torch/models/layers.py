@@ -35,7 +35,8 @@ class Params(nn.Module):
     """A module of named parameters, each with its init rule.
 
     Rules: ("normal", scale) draws N(0, 1) * scale in float32, then casts to
-    the parameter's dtype; ("ones",) fills ones.
+    the parameter's dtype; ("uniform",) draws U[0, 1) likewise; ("ones",)
+    fills ones and ("fill", value) fills `value`.
     """
 
     def __init__(self):
@@ -67,6 +68,11 @@ def init_module(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 p = getattr(mod, name)
                 if rule[0] == "ones":
                     p.fill_(1.0)
+                elif rule[0] == "fill":
+                    p.fill_(rule[1])
+                elif rule[0] == "uniform":
+                    p.copy_(torch.rand(p.shape, generator=generator, dtype=torch.float32,
+                                       device=p.device))
                 else:
                     draw = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                                        device=p.device)

@@ -1,14 +1,22 @@
-"""LM assembly: init, forward and loss for the dense, vlm and moe families.
+"""LM assembly: init, forward and loss for every architecture family.
 
 Counterpart of `repro/models/lm.py`. The reference scans stacked per-layer
-parameters; the port holds one `Block` per layer (`layers.<i>`) and walks
-them in a Python loop, under the config's remat policy (`_walk_layers`:
-`remat_wrap` per layer, and for `remat="sqrt"` the reference's second level
-of G groups). The moe family runs the secure-shuffle expert dispatch inside
-each block; with `moe_remat="save_shuffle"` the backward keeps both legs'
-outputs at both levels and replays no exchange. The ssm, hybrid and audio
-families are ROADMAP item 10: `init_params` raises NotImplementedError for
-those families.
+parameters; the port holds one `Block` per layer (`layers.<i>`, and for
+audio `encoder.<i>` and `decoder.<i>`) and walks them in a Python loop,
+under the config's remat policy (`_walk_layers`: `remat_wrap` per layer,
+and for `remat="sqrt"` the reference's second level of G groups).
+Families:
+  dense | vlm       attn blocks
+  moe               attn+MoE blocks (secure-shuffle expert dispatch inside;
+                    with `moe_remat="save_shuffle"` the backward keeps both
+                    legs' outputs at both levels and replays no exchange)
+  ssm (rwkv6)       rwkv blocks
+  hybrid (zamba2)   mamba blocks in groups of `attn_every`, each group
+                    followed by ONE weight-shared attention+MLP block
+                    (`shared_attn`), then the remainder without attention
+  audio (whisper)   encoder walk (non-causal) + decoder walk with
+                    cross-attention; the conv/mel frontend is a stub: the
+                    inputs are frame embeddings (`batch["frames"]`)
 """
 
 from __future__ import annotations
@@ -17,18 +25,20 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Embed,
     Norm,
     apply_norm,
+    compute_dtype,
     embed_apply,
     init_module,
     unembed_apply,
 )
 
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def main_kind(cfg) -> str:
@@ -44,14 +54,14 @@ def main_kind(cfg) -> str:
 
 def check_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (ROADMAP item 10); "
-            f"the port serves {PORTED_FAMILIES}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the port has "
+                         f"{PORTED_FAMILIES}")
 
 
 class LM(nn.Module):
     """The model's parameters, named as the reference's tree: `embed.table`,
-    `layers.<i>.{ln1,attn,ln2,mlp|moe}.*`, `final_norm.scale`. Built
+    `layers.<i>.*` (audio: `encoder.<i>.*`, `enc_norm.scale`,
+    `decoder.<i>.*`; hybrid adds `shared_attn.*`), `final_norm.scale`. Built
     uninitialised; `init_params` draws it, `load_state_dict` of
     `repro_torch.convert.lm_params` loads the reference's. `n_model` pads the
     experts to a multiple of the mesh's shards, as the reference's.
@@ -65,8 +75,18 @@ class LM(nn.Module):
         check_family(cfg)
         device = resolve_device(device)
         self.embed = Embed(cfg, cfg.padded_vocab, cfg.d_model, device)
-        self.layers = nn.ModuleList(B.block_init(cfg, main_kind(cfg), n_model, device)
-                                    for _ in range(cfg.n_layers))
+
+        def stack(kind, n):
+            return nn.ModuleList(B.block_init(cfg, kind, n_model, device) for _ in range(n))
+
+        if cfg.family == "audio":
+            self.encoder = stack("enc", cfg.n_encoder_layers)
+            self.enc_norm = Norm(cfg.d_model, device)
+            self.decoder = stack("dec_cross", cfg.n_layers)
+        else:
+            self.layers = stack(main_kind(cfg), cfg.n_layers)
+        if cfg.family == "hybrid":
+            self.shared_attn = B.block_init(cfg, "attn", n_model, device)
         self.final_norm = Norm(cfg.d_model, device)
         if param_dtype is not None:
             self.to(param_dtype).requires_grad_(True)
@@ -118,8 +138,45 @@ def _walk_layers(cfg, layers, carry, layer_step, save_ops=()):
     return carry
 
 
+def _walk_hybrid(cfg, model, x, positions):
+    """Mamba layers in groups of `attn_every`, the weight-SHARED attention
+    block after each group, then the remainder layers without attention
+    (the reference's `_scan_hybrid`): each mamba layer and the shared block
+    under `remat_wrap`, and each whole group checkpointed, whatever the
+    policy."""
+    every = cfg.attn_every or (cfg.n_layers + 1)
+    n_groups = cfg.n_layers // every
+    mamba_body = B.remat_wrap(cfg, lambda p, h: B.apply_mamba_block(cfg, p, h)[0])
+    attn_body = B.remat_wrap(cfg, lambda h: B.apply_attn_block(cfg, model.shared_attn, h,
+                                                               positions))
+
+    def walk(h, lo, hi):
+        for p in model.layers[lo:hi]:
+            h = mamba_body(p, h)
+        return h
+
+    group = B.checkpointed(lambda h, g: attn_body(walk(h, g * every, (g + 1) * every)))
+    for g in range(n_groups):
+        x = group(x, g)
+    return walk(x, n_groups * every, cfg.n_layers)
+
+
+def encode_audio(cfg, model, frames):
+    """frames: (B, S_enc, d_model) frontend embeddings (the stub). Returns the
+    cross-attention (k, v) of every decoder layer, stacked: (L, B, S_enc,
+    Hkv, Dh) each."""
+    b, s, _ = frames.shape
+    pos = torch.arange(s, device=frames.device)[None].expand(b, s)
+    h = _walk_layers(cfg, model.encoder, frames.to(compute_dtype(cfg)),
+                     lambda hh, p: B.apply_attn_block(cfg, p, hh, pos, causal=False))
+    h = apply_norm(cfg, model.enc_norm, h)
+    kv = [attn.project_kv(cfg, p.xattn, h, pos, apply_rope=False) for p in model.decoder]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
+
+
 def forward(cfg, model, batch, mesh=None, secure_moe=None):
-    """batch: {"tokens": (B, T) int}. Returns (logits (B, T, V_pad), aux dict).
+    """batch: {"tokens": (B, T) int[, "frames": (B, S_enc, d) for audio]}.
+    Returns (logits (B, T, V_pad), aux dict).
 
     Records a graph for the backward when grad is enabled and the model's
     parameters require it (a training model, `param_dtype`)."""
@@ -141,6 +198,16 @@ def forward(cfg, model, batch, mesh=None, secure_moe=None):
                                            (x, aux["moe_aux"], aux["moe_dropped"]), step,
                                            save)
         aux = {"moe_aux": moe_aux / cfg.n_layers, "moe_dropped": dropped}
+    elif cfg.family == "ssm":
+        x = _walk_layers(cfg, model.layers, x, lambda h, p: B.apply_rwkv_block(cfg, p, h)[0])
+    elif cfg.family == "hybrid":
+        x = _walk_hybrid(cfg, model, x, positions)
+    elif cfg.family == "audio":
+        enc_k, enc_v = encode_audio(cfg, model, batch["frames"])
+        body = B.remat_wrap(cfg, lambda p, k, v, h: B.apply_dec_cross_block(cfg, p, h,
+                                                                            positions, (k, v)))
+        for i, p in enumerate(model.decoder):
+            x = body(p, enc_k[i], enc_v[i], x)
     else:
         x = _walk_layers(cfg, model.layers, x,
                          lambda h, p: B.apply_attn_block(cfg, p, h, positions))

@@ -1,15 +1,24 @@
-"""Serving: KV cache, prefill and one-token decode for the dense, vlm and moe
-families.
+"""Serving: KV / state caches, prefill and one-token decode, per family.
 
 Counterpart of `repro/serve/engine.py`. The cache is a dict of tensors on
 one device, written in place: `prefill` fills it and returns the last
 token's logits, `decode_step` appends one token and returns float32 logits.
-A MoE model given a `VirtualMesh` dispatches its experts through the
-mesh's shuffle, ChaCha20-encrypted in prefill when `secure_moe` is set (a
-decode step whose single token does not split over the shards takes the
-replicated dispatch, which has no exchange). The reference's `cache_specs`
-(a PartitionSpec tree) has no counterpart on one card; the ssm, hybrid and
-audio families are ROADMAP item 10 and raise NotImplementedError.
+Per family:
+  dense | vlm | moe  "k", "v" (L, B, S, Hkv, Dh)
+  ssm                "tshift", "cshift" (L, B, 1, d): the normalised inputs'
+                     last tokens; "wkv" (L, B, H, Dk, Dv) float32
+  hybrid             "ssm_h" (L, B, H, N, P) float32, "conv" (L, B, W-1,
+                     d_inner); "attn_k", "attn_v" per invocation of the
+                     shared attention block
+  audio              "k", "v" for the decoder's self-attention; "xk", "xv"
+                     (L, B, S_enc, Hkv, Dh), the encoder's cross K/V that
+                     prefill computes once and decode only reads
+and "pos" (B,) int32 for all. A MoE model given a `VirtualMesh` dispatches
+its experts through the mesh's shuffle, ChaCha20-encrypted in prefill when
+`secure_moe` is set (a decode step whose single token does not split over
+the shards takes the replicated dispatch, which has no exchange). The
+reference's `cache_specs` (a PartitionSpec tree) has no counterpart on one
+card.
 """
 
 from __future__ import annotations
@@ -18,48 +27,122 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import blocks as B
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, compute_dtype, embed_apply, mlp_apply, unembed_apply
-from repro_torch.models.lm import check_family
+from repro_torch.models.lm import check_family, encode_audio
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None, dtype=None) -> dict:
-    """{"k", "v": (L, B, S, Hkv, Dh) in the compute dtype, "pos": (B,) int32}."""
+    """The family's cache, zeroed (see the module's docstring); K/V and
+    shifts in the compute dtype unless `dtype` is given."""
     check_family(cfg)
     device = resolve_device(device)
     dt = dtype or compute_dtype(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    l, hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kv = (l, batch, max_seq, hkv, dh)
+    c = {"pos": zeros((batch,), torch.int32)}
+    if cfg.family == "ssm":
+        h, dk = rwkv_mod.rwkv_dims(cfg)
+        c.update(tshift=zeros((l, batch, 1, cfg.d_model)),
+                 wkv=zeros((l, batch, h, dk, dk), torch.float32),
+                 cshift=zeros((l, batch, 1, cfg.d_model)))
+    elif cfg.family == "hybrid":
+        d_inner, h = ssm_mod.ssm_dims(cfg)
+        n_inv = max(cfg.n_layers // cfg.attn_every if cfg.attn_every else 0, 1)
+        c.update(ssm_h=zeros((l, batch, h, cfg.ssm_state, ssm_mod.HEAD_P), torch.float32),
+                 conv=zeros((l, batch, cfg.ssm_conv - 1, d_inner)),
+                 attn_k=zeros((n_inv,) + kv[1:]), attn_v=zeros((n_inv,) + kv[1:]))
+    else:
+        c.update(k=zeros(kv), v=zeros(kv))
+        if cfg.family == "audio":
+            xkv = (l, batch, cfg.encoder_seq, hkv, dh)
+            c.update(xk=zeros(xkv), xv=zeros(xkv))
+    return c
+
+
+def _store_kv(cache_k, cache_v, k, v):
+    """Write a prefill's (B, T, Hkv, Dh) K/V into one layer's cache; the
+    positions past T are zeroed, as the reference's padded cache has them."""
+    t = k.shape[1]
+    for store, new in ((cache_k, k), (cache_v, v)):
+        store[:, :t] = new
+        store[:, t:] = 0
+
+
+def _prefill_attn(cfg, p, x, positions, cache_k, cache_v):
+    """Self-attention of a prefill, its K/V into the cache; returns x + attn."""
+    hn = apply_norm(cfg, p.ln1, x)
+    k, v = attn.project_kv(cfg, p.attn, hn, positions)
+    x = x + attn.self_attention(cfg, p.attn, hn, positions, kv=(k, v))
+    _store_kv(cache_k, cache_v, k, v)
+    return x
 
 
 @torch.no_grad()
-def prefill(cfg, model, tokens, cache, mesh=None, secure_moe=None):
-    """Fill `cache` with `tokens` (B, Tp) in place; returns the last token's
-    logits (B, V_pad) in the compute dtype. Cache positions past Tp are
-    zeroed, as the reference's padded cache has them."""
+def prefill(cfg, model, tokens, cache, mesh=None, frames=None, secure_moe=None):
+    """Fill `cache` with `tokens` (B, Tp) in place (audio: and `frames` (B,
+    S_enc, d), the frontend embeddings); returns the last token's logits
+    (B, V_pad) in the compute dtype."""
     check_family(cfg)
     b, t = tokens.shape
     x = embed_apply(cfg, model.embed, tokens)
     positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
-    for i, p in enumerate(model.layers):
-        hn = apply_norm(cfg, p.ln1, x)
-        k, v = attn.project_kv(cfg, p.attn, hn, positions)
-        x = x + attn.self_attention(cfg, p.attn, hn, positions, kv=(k, v))
-        for store, new in ((cache["k"][i], k), (cache["v"][i], v)):
-            store[:, :t] = new
-            store[:, t:] = 0
-        del k, v
-        hn = apply_norm(cfg, p.ln2, x)
-        if cfg.family == "moe":
-            y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh, secure=secure_moe)
-            x = x + y
-        else:
-            x = x + mlp_apply(cfg, p.mlp, hn)
+    fam = cfg.family
+    if fam == "ssm":
+        for i, p in enumerate(model.layers):
+            x, states = B.apply_rwkv_block(cfg, p, x)
+            for name, s in zip(("tshift", "wkv", "cshift"), states):
+                cache[name][i].copy_(s)
+    elif fam == "hybrid":
+        every = cfg.attn_every or (cfg.n_layers + 1)
+        inv = 0
+        for i, p in enumerate(model.layers):
+            x, h_end, conv_end = B.apply_mamba_block(cfg, p, x)
+            cache["ssm_h"][i].copy_(h_end)
+            cache["conv"][i].copy_(conv_end)
+            if i % every == every - 1:
+                sp = model.shared_attn
+                x = _prefill_attn(cfg, sp, x, positions, cache["attn_k"][inv],
+                                  cache["attn_v"][inv])
+                x = x + mlp_apply(cfg, sp.mlp, apply_norm(cfg, sp.ln2, x))
+                inv += 1
+    elif fam == "audio":
+        if frames is None:
+            raise ValueError("audio prefill needs the frontend's frames")
+        xk, xv = encode_audio(cfg, model, frames)
+        cache["xk"].copy_(xk)
+        cache["xv"].copy_(xv)
+        del xk, xv
+        for i, p in enumerate(model.decoder):
+            x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
+            x = x + attn.cross_attention(cfg, p.xattn, apply_norm(cfg, p.lnx, x),
+                                         (cache["xk"][i], cache["xv"][i]), positions)
+            x = x + mlp_apply(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+    else:
+        for i, p in enumerate(model.layers):
+            x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
+            hn = apply_norm(cfg, p.ln2, x)
+            if fam == "moe":
+                y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh, secure=secure_moe)
+                x = x + y
+            else:
+                x = x + mlp_apply(cfg, p.mlp, hn)
     cache["pos"].fill_(t)
     x = apply_norm(cfg, model.final_norm, x[:, -1:])
     return unembed_apply(cfg, model.embed, x)[:, 0]
+
+
+def _decode_attn(cfg, p, x, cache_k, cache_v, pos):
+    hn = apply_norm(cfg, p.ln1, x)
+    a, _, _ = attn.decode_self_attention(cfg, p.attn, hn, cache_k, cache_v, pos)
+    return x + a
 
 
 @torch.no_grad()
@@ -69,16 +152,46 @@ def decode_step(cfg, model, cache, tokens, mesh=None):
     check_family(cfg)
     pos = cache["pos"]
     x = embed_apply(cfg, model.embed, tokens)
-    for i, p in enumerate(model.layers):
-        hn = apply_norm(cfg, p.ln1, x)
-        a, _, _ = attn.decode_self_attention(cfg, p.attn, hn, cache["k"][i], cache["v"][i], pos)
-        x = x + a
-        hn = apply_norm(cfg, p.ln2, x)
-        if cfg.family == "moe":
-            y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh)
+    fam = cfg.family
+    if fam == "ssm":
+        for i, p in enumerate(model.layers):
+            y, tsh, wkv = rwkv_mod.rwkv_time_mix_step(cfg, p.tmix, apply_norm(cfg, p.ln1, x),
+                                                      cache["tshift"][i], cache["wkv"][i])
             x = x + y
-        else:
-            x = x + mlp_apply(cfg, p.mlp, hn)
+            y, csh = rwkv_mod.rwkv_channel_mix(cfg, p.tmix, apply_norm(cfg, p.ln2, x),
+                                               cache["cshift"][i])
+            x = x + y
+            for name, s in (("tshift", tsh), ("wkv", wkv), ("cshift", csh)):
+                cache[name][i].copy_(s)
+    elif fam == "hybrid":
+        every = cfg.attn_every or (cfg.n_layers + 1)
+        inv = 0
+        for i, p in enumerate(model.layers):
+            y, h_new, conv_new = ssm_mod.ssm_decode_step(cfg, p.ssm, apply_norm(cfg, p.ln1, x),
+                                                         cache["ssm_h"][i], cache["conv"][i])
+            x = x + y
+            cache["ssm_h"][i].copy_(h_new)
+            cache["conv"][i].copy_(conv_new)
+            if i % every == every - 1:
+                sp = model.shared_attn
+                x = _decode_attn(cfg, sp, x, cache["attn_k"][inv], cache["attn_v"][inv], pos)
+                x = x + mlp_apply(cfg, sp.mlp, apply_norm(cfg, sp.ln2, x))
+                inv += 1
+    elif fam == "audio":
+        for i, p in enumerate(model.decoder):
+            x = _decode_attn(cfg, p, x, cache["k"][i], cache["v"][i], pos)
+            x = x + attn.cross_attention(cfg, p.xattn, apply_norm(cfg, p.lnx, x),
+                                         (cache["xk"][i], cache["xv"][i]), pos[:, None])
+            x = x + mlp_apply(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+    else:
+        for i, p in enumerate(model.layers):
+            x = _decode_attn(cfg, p, x, cache["k"][i], cache["v"][i], pos)
+            hn = apply_norm(cfg, p.ln2, x)
+            if fam == "moe":
+                y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh)
+                x = x + y
+            else:
+                x = x + mlp_apply(cfg, p.mlp, hn)
     pos.add_(1)
     x = apply_norm(cfg, model.final_norm, x)
     return unembed_apply(cfg, model.embed, x)[:, 0].float()

@@ -1,9 +1,10 @@
-"""Batched serving driver: prefill + sampled decode on a dense, vlm or moe arch.
+"""Batched serving driver: prefill + sampled decode on any assigned arch.
 
     PYTHONPATH=src python -m repro_torch.serve_lm --arch granite-moe-3b-a800m [--device cpu]
 
 The port's counterpart of `examples/serve_lm.py`: the arch's reduced config,
-weights from a seeded `torch.Generator`. A MoE arch dispatches its
+weights from a seeded `torch.Generator` (an audio arch's frame embeddings
+too: its frontend is a stub). A MoE arch dispatches its
 experts over `--shards` virtual shards, ChaCha20-encrypting the prefill's
 expert exchange with `--secure`. Prints prefill ms, decode ms per token and
 aggregate tokens/s, host clock up to a synchronise.
@@ -61,11 +62,15 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (b, tp), generator=gen, device=device,
                             dtype=torch.int32)
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen, device=device)
     cache = init_cache(cfg, b, tp + args.tokens + 1, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits = prefill(cfg, model, prompts, cache, mesh=mesh, secure_moe=secure)
+    logits = prefill(cfg, model, prompts, cache, mesh=mesh, frames=frames,
+                     secure_moe=secure)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 

@@ -4,8 +4,8 @@ Counterpart of `repro/train/step.py`. Secure ingest is the paper's data
 path applied to training: batches arrive as ChaCha20 ciphertext (encrypted
 by the data pipeline, `repro_torch.data`) and are decrypted inside the step
 by `crypto/ctr.py::encrypt_array`; on the card that is one ChaCha20 kernel
-launch, its counter read from device memory, so the plaintext tokens exist
-only in device memory. The per-step counter comes in-band (`batch["ctr"]`),
+launch (two for an audio batch: the tokens, then the frames), its counter
+read from device memory, so the plaintext exists only in device memory. The per-step counter comes in-band (`batch["ctr"]`),
 so a restart resumes the keystream exactly.
 
 The step runs eagerly: the reference's `jax.jit` has no counterpart here.
@@ -53,13 +53,25 @@ def value_and_grad(cfg, model, batch, mesh=None, secure_moe=None):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(named, grads))
 
 
+FRAMES_CTR_OFFSET = 1 << 16  # the audio frames' keystream starts here past "ctr"
+
+
 def decrypt_batch(batch: dict, ingest: SecureIngest | None) -> dict:
     """The step's batch: tokens decrypted under `ingest` at `batch["ctr"]`
-    (a host int or a 0-d tensor); "ctr" dropped either way."""
+    (a host int or a 0-d tensor), and an audio batch's "frames" at "ctr" +
+    2**16, as the reference's step does; "ctr" dropped either way. On the
+    card each is one ChaCha20 launch, the counter read from device memory.
+
+    The frames' offset is the reference's, kept for parity: a frames
+    tensor longer than 2**16 blocks (whisper's 8 x 1,500 x 512 float32
+    frames span 384,000) overlaps the keystream of the next counters, so a
+    caller spaces its steps' counters past 2**16 + the frames' blocks."""
     out = {k: v for k, v in batch.items() if k != "ctr"}
     if ingest is not None:
-        out["tokens"] = decrypt_array(batch["tokens"], ingest.key_words, ingest.nonce_words,
-                                      batch["ctr"])
+        kw, nw, ctr = ingest.key_words, ingest.nonce_words, batch["ctr"]
+        out["tokens"] = decrypt_array(batch["tokens"], kw, nw, ctr)
+        if "frames" in batch:
+            out["frames"] = decrypt_array(batch["frames"], kw, nw, ctr + FRAMES_CTR_OFFSET)
     return out
 
 

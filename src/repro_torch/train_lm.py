@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.train_lm --arch granite-moe-3b-a800m [--device cpu]
 
 The port's counterpart of `examples/train_lm.py`: the arch's reduced config
-(dense, vlm or moe), float32 masters from a seeded `torch.Generator`,
+(any family but audio, which the reference's driver refuses too), float32 masters from a seeded `torch.Generator`,
 structured synthetic tokens, the paper's data path (batches encrypted by
 `SecureShardedSource`, decrypted inside the step), MAC-verified checkpoints
 every `--ckpt-every` steps, and the loss falling. A MoE arch dispatches its
@@ -48,6 +48,8 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
+    if cfg.family == "audio":
+        raise SystemExit("audio arch: use serve_lm.py (training driver is LM-style)")
     session = make_session_keys(b"\x42" * 32)
     ingest = SecureIngest(key_words=session.words("data"),
                           nonce_words=session.nonce_words("data", 0))

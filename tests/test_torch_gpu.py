@@ -11,6 +11,11 @@ on the same inputs, at small and odd sizes with one wire on each side of the
 ChaCha kernel's lanes threshold, and must agree bit for bit; a warm sort or
 grep round must not synchronise before the driver's halt read.
 
+The LM families' scans (the blocked WKV, the chunked SSD) run on the card
+against the CPU on the same float32 inputs within rtol 1e-4 (the WKV also
+against its per-token scan within 2e-4), and an audio batch's frames
+decrypt on the card equal to the CPU's ARX bit for bit.
+
 Tolerances: ChaCha20 output exact (kernel == plain version bit for bit,
 on row-aligned and packed wires, both kernel designs), one launch and no
 synchronising call per crypt of a warm wire layout; k-means assignments equal to the plain
@@ -1275,3 +1280,80 @@ def test_embedding_backward_is_fixed_order_on_card(cuda):
         grads.append(gt.cpu())
     assert torch.equal(grads[0], grads[1])
     assert not grads[0][50:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [16, 1024])
+def test_blocked_wkv_card_equals_cpu(cuda, t):
+    """The blocked WKV (float32) on the card against the CPU on the same
+    inputs, output and end state within rtol/atol 1e-4 (float32 products
+    summed in other orders), and against the card's own per-token scan
+    within 2e-4 (tests/test_rwkv_wkv.py's tolerance)."""
+    from repro_torch.models.rwkv import _wkv_blocked, _wkv_scan
+
+    g = torch.Generator().manual_seed(t)
+    r, k, v = (torch.randn(2, t, 2, 64, generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(2, t, 2, 64, generator=g) * 13.2 - 12.0))
+    u, s0 = torch.randn(2, 64, generator=g), torch.randn(2, 2, 64, 64, generator=g)
+    args = (r, k, v, w, u, s0)
+    want = _wkv_blocked(*args)
+    got = _wkv_blocked(*(a.to(cuda) for a in args))
+    scan = _wkv_scan(*(a.to(cuda) for a in args), chunk=256)
+    for a, b, c in zip(got, want, scan):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a, c, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,chunk", [(64, 64), (1024, 256)])
+def test_chunked_ssd_card_equals_cpu(cuda, t, chunk):
+    """The chunked SSD (float32) on the card against the CPU on the same
+    inputs within rtol 1e-4 and 1e-5 of the output's largest magnitude;
+    its gradient for dt finite on the card at chunk 256 (the decay is
+    masked before its exp)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    g = torch.Generator().manual_seed(t)
+    xh = torch.randn(1, t, 2, 8, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(1, t, 2, generator=g))
+    a_log = torch.zeros(2)
+    bm, cm = (torch.randn(1, t, 4, generator=g) for _ in range(2))
+    h0 = torch.randn(1, 2, 4, 8, generator=g)
+    args = (xh, dt, a_log, bm, cm, h0)
+    want = ssd_chunked(*args, chunk)
+    card = [a.to(cuda) for a in args]
+    card[1].requires_grad_()
+    got = ssd_chunked(*card, chunk)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.detach().cpu(), b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+    (gdt,) = torch.autograd.grad(torch.sum(got[0] ** 2), card[1])
+    assert bool(torch.isfinite(gdt).all())
+
+
+@pytest.mark.gpu
+def test_frames_decrypt_on_card_equals_cpu_arx(cuda):
+    """An audio batch's secure ingest on the card: tokens at ctr and frames
+    at ctr + 2**16 (a device counter), two ChaCha launches, equal bit for
+    bit to the CPU's plain ARX and to the plaintext."""
+    from repro_torch.crypto.ctr import encrypt_array
+    from repro_torch.kernels.chacha20 import kernel
+    from repro_torch.train.step import SecureIngest, decrypt_batch
+
+    rng = np.random.default_rng(0)
+    key = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    nonce = rng.integers(0, 2**32, 3, dtype=np.uint32)
+    toks = torch.from_numpy(rng.integers(0, 51865, (2, 448)).astype(np.int32))
+    frames = torch.from_numpy(rng.normal(size=(2, 1500, 512)).astype(np.float32))
+    ctr = 450_000
+    ct = {"tokens": encrypt_array(toks, key, nonce, ctr),
+          "frames": encrypt_array(frames, key, nonce, ctr + (1 << 16))}
+    ingest = SecureIngest(key_words=key, nonce_words=nonce)
+    want = decrypt_batch(dict(ct, ctr=ctr), ingest)
+    before = kernel.launches
+    got = decrypt_batch({"tokens": ct["tokens"].to(cuda), "frames": ct["frames"].to(cuda),
+                         "ctr": torch.tensor(ctr, dtype=torch.int64, device=cuda)}, ingest)
+    assert kernel.launches == before + 2
+    for name, plain in (("tokens", toks), ("frames", frames)):
+        assert torch.equal(got[name].cpu(), want[name]), name
+        assert torch.equal(want[name], plain), name

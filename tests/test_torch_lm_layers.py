@@ -260,13 +260,25 @@ def test_lm_params_loads_the_reference_tree():
         lm_params(cfg, params, 3)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b", "whisper-base"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_inits_caches_and_prefills(arch):
+    """Every config of the registry, reduced: `init_params`, `init_cache`
+    and one `prefill` (with seeded frames for audio) on the CPU give finite
+    logits of the padded vocabulary's width and the cache's position."""
+    from repro_torch.serve.engine import prefill
+
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        init_params(cfg, torch.Generator().manual_seed(0), 1, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        init_cache(cfg, 1, 8, "cpu")
+    model = init_params(cfg, torch.Generator().manual_seed(0), 1, "cpu")
+    cache = init_cache(cfg, 2, 12, "cpu")
+    rng = np.random.default_rng(0)
+    toks = t(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    frames = None
+    if cfg.family == "audio":
+        frames = t(rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    logits = prefill(cfg, model, toks, cache, frames=frames)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    assert torch.equal(cache["pos"], torch.full((2,), 8, dtype=torch.int32))
 
 
 def test_entry_points_without_device_raise_without_cuda(monkeypatch):

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs eighteen phases, each printing one JSON line, and a nineteenth line:
+then runs twenty-one phases, each printing one JSON line, and a twenty-second
+line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -89,20 +90,32 @@ then runs eighteen phases, each printing one JSON line, and a nineteenth line:
                  (its own calls, not the check's reference step: ChaCha > 0,
                  k-means 0, as the cluster k-means runs on the host)
   calibrate      the calibrated cost model on the card: run_calibration(quick)
-                 on 8 virtual shards (every fitted constant, >= 0 and finite,
-                 and the seconds it took); saved to a temporary JSON and
-                 activated through $REPRO_CALIBRATION, each `auto` resolver
-                 answers the model's recommendation, and with the variable
-                 unset its default; trace_workload of the main path's secure
-                 k-means round (4,194,304 x 64, K=256), a sort round and a
-                 grep round: predicted wire bytes == the wire record of the
-                 path's own rounds exactly, predicted round us beside the
-                 served graph round's ms (`pred_over_measured`, not asserted:
-                 per-item map math is the model's known blind spot) and the
-                 predicted capture seconds; hillclimb cells S and K on this
-                 calibration (best vector, resolver vector); the kernels'
-                 launches on this path (ChaCha > 0 from the secure probes and
-                 traces, k-means >= 1 from the k-means trace)
+                 on 8 virtual shards, then each main-path workload's own item
+                 term (`probe_workload_items`: its plaintext round through
+                 the graph runner at three per-shard sizes of at most 1/8 of
+                 the main path's), every fitted constant >= 0 and finite,
+                 and the seconds both took (`calibration_s`); saved to a
+                 temporary JSON and activated through $REPRO_CALIBRATION,
+                 each `auto` resolver answers the model's recommendation,
+                 and with the variable unset its default; trace_workload of
+                 the main path's secure k-means round (4,194,304 x 64,
+                 K=256), a sort round (2**24 values) and a grep round (2**26
+                 tokens), each with its item term: predicted wire bytes ==
+                 the wire record of the path's own rounds exactly, the
+                 predicted round beside the served graph round's ms,
+                 ASSERTED |pred - measured| / measured <= PRED_ERROR_MAX
+                 (0.5, `benchmarks/bench_costmodel.py`'s bar), the generic
+                 slope's prediction beside it, and the predicted capture
+                 seconds; hillclimb cells S and K on this calibration (best
+                 vector, resolver vector); the kernels' launches on this
+                 path (ChaCha > 0 from the secure probes and traces, k-means
+                 >= 1 from the k-means trace)
+  paper          the paper's evaluation script, `python -m
+                 repro_torch.kmeans_secure`, whole on the card: the secure
+                 fit (20,000 x 2 points, K = 10) on a one-shard mesh, both
+                 kernels launched; its rounds equal the same fit's on the
+                 CPU and its centres within PAPER_TOL; the cluster sweep's
+                 virtual times and overheads and the paging cliff's bytes
   lm_serve       LM serving of granite-moe-3b-a800m at its published config
                  (32 layers, d_model 1536, 40 experts top-8, bf16, seeded
                  weights) with its experts on 8 virtual shards: a secure
@@ -168,6 +181,25 @@ then runs eighteen phases, each printing one JSON line, and a nineteenth line:
                  kernel on the ingest wire (and the frames) == plain bit
                  for bit against its bound; the reduced model card == CPU
                  after two steps (lm_train's rule)
+  lm_dense       glm4-9b (40 layers, d_model 4096, 32 heads with 2 KV
+  lm_moe_shared  heads, d_ff 13,696) and qwen2-moe-a2.7b (24 layers, 60
+                 routed experts top-4 padded to 64 over 8 virtual shards, 4
+                 shared experts of hidden 5,632) at their published configs,
+                 asserted field by field, bf16, seeded weights, served: one
+                 sequence's 16th decode step after a prefill == a prefill of
+                 the same tokens within FAMILY_CONSIST_TOL in float32
+                 (qwen2-moe at a capacity that drops nothing; at the
+                 published capacity measured), in bf16 measured; a batch of
+                 8 x 4,096 prompt tokens (cut to 4 past LM_PEAK_LIMIT) and
+                 64 sampled decode steps, every logit finite, no ChaCha
+                 launch in decode; qwen2-moe's prefill secure: 4 ChaCha
+                 launches a layer, secure == plain bit for bit (logits, KV
+                 cache), no token routed to a padding expert, the kernel on
+                 one leg's wire == plain against its bytes bound; glm4's
+                 prefill runs no shuffle; prefill ms and tokens/s, device
+                 operations and idle share, decode ms per step, a profiled
+                 step's idle share and operations, peak memory, the
+                 prefill's operations bound and the step's bytes bound
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
@@ -175,9 +207,10 @@ then runs eighteen phases, each printing one JSON line, and a nineteenth line:
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
-                 calibrate, lm_serve, lm_train, lm_ssm, lm_hybrid,
-                 lm_audio; k-means: k-means, calibrate, and 0 on the three
-                 family paths),
+                 calibrate, paper, lm_serve, lm_train, lm_ssm, lm_hybrid,
+                 lm_audio, lm_moe_shared, and 0 on lm_dense, which has no
+                 exchange; k-means: k-means, calibrate, paper, and 0 on the
+                 five LM family paths),
                  each counted from 0
                  just before that
                  path's run, and on the serve path (by profiler: replayed
@@ -1451,7 +1484,8 @@ PEAK_BF16_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 def lm_prefill_flops(cfg, b: int, t: int, n_shards: int) -> dict:
     """Operations of one prefill as the port computes them: every projection
-    (q, k, v, o, router), the experts over their capacity-padded slots, the
+    (q, k, v, o, router), the experts over their capacity-padded slots (and
+    a shared expert over every token), the
     full (unmasked) score and context products of the query-chunked
     attention, and the last token's unembedding; 2 per multiply-add."""
     from repro_torch.models.moe import _capacity, padded_experts
@@ -1463,6 +1497,8 @@ def lm_prefill_flops(cfg, b: int, t: int, n_shards: int) -> dict:
     experts = 2 * 3 * n_shards * e_pad * cap * d * (cfg.moe_d_ff or cfg.d_ff)
     scores = 2 * 2 * b * cfg.n_heads * t * t * dh
     per_layer = {"projections": proj, "experts": experts, "attention": scores}
+    if cfg.n_shared_experts:  # the shared expert over every token, and its gate
+        per_layer["shared_experts"] = 2 * n * d * (3 * cfg.shared_d_ff + 1)
     out = {k: v * cfg.n_layers for k, v in per_layer.items()}
     out["unembed"] = 2 * b * d * cfg.padded_vocab
     out["total"] = sum(out.values())
@@ -2090,7 +2126,9 @@ WKV_TOL, SSD_TOL = 2e-4, 2e-2
 
 def family_prefill_flops(cfg, b: int, t: int) -> dict:
     """Operations of one prefill as the port computes them, 2 per
-    multiply-add: every matrix product of the layers, the scans' products
+    multiply-add: every matrix product of the layers (dense: the
+    projections, the gated MLP and the full-square attention chunks), the
+    scans' products
     (rwkv: per token and head the intra-block pairs and their values, the
     carried state's product and the state increment; zamba2: C·B, the
     intra-chunk product, the chunk's state increment and the inter-chunk
@@ -2118,6 +2156,9 @@ def family_prefill_flops(cfg, b: int, t: int) -> dict:
         out["ssd"] = 2 * n * (q * nst + h * q * HEAD_P + 2 * h * nst * HEAD_P) * L
         out["shared_block"] = 2 * n * (attn_proj + mlp) * n_inv
         out["attention"] = 2 * 2 * b * cfg.n_heads * t * t * dh * n_inv
+    elif cfg.family in ("dense", "vlm"):
+        out["projections"] = 2 * n * (attn_proj + mlp) * L
+        out["attention"] = 2 * 2 * b * cfg.n_heads * t * t * dh * L
     else:
         s, le = cfg.encoder_seq, cfg.n_encoder_layers
         out["encoder"] = (2 * b * s * (attn_proj + mlp) + 2 * 2 * b * cfg.n_heads * s * s * dh) * le
@@ -2212,18 +2253,21 @@ def family_scan_check(dev, cfg, model) -> dict:
             "apply_ms": 1e3 * apply_s, "iterated_ms": 1e3 * step_s}
 
 
-def family_consistency(dev, cfg, spec, model=None) -> dict:
+def family_consistency(dev, cfg, spec, model=None, mesh=None) -> dict:
     """One sequence: 16 decode steps after a prefill against a prefill of
     the same tokens (rwkv, zamba2: after 4,080 of 4,096 tokens, a multiple
     of 16, so the blocked WKV and the chunked SSD run; whisper: after its
     prompt, on the same frames), every logit finite; `model` None draws the
-    config's model from the phase's seed."""
+    config's model from the phase's seed (its experts over `mesh`'s shards,
+    which carry the MoE)."""
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import decode_step, init_cache, prefill
 
     audio, vocab = cfg.family == "audio", cfg.vocab_size
     if model is None:
-        model = init_params(cfg, torch.Generator(device=dev).manual_seed(FAMILY_SEED), 1, dev)
+        n_model = 1 if mesh is None else mesh.n_shards
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(FAMILY_SEED), n_model,
+                            dev)
     g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 2)
     n_tok = spec["prompt"] + FAMILY_CONSIST_STEPS if audio else spec["prompt"]
     head = n_tok - FAMILY_CONSIST_STEPS
@@ -2231,12 +2275,12 @@ def family_consistency(dev, cfg, spec, model=None) -> dict:
     fr = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g, device=dev) if audio else None
     smax = spec.get("smax", n_tok + 1)
     cache = init_cache(cfg, 1, smax, dev)
-    lg = prefill(cfg, model, toks[:, :head], cache, frames=fr)
+    lg = prefill(cfg, model, toks[:, :head], cache, mesh=mesh, frames=fr)
     ok = [torch.isfinite(lg[:, :vocab]).all()]
     for i in range(head, n_tok):
-        lg = decode_step(cfg, model, cache, toks[:, i:i + 1])
+        lg = decode_step(cfg, model, cache, toks[:, i:i + 1], mesh=mesh)
         ok.append(torch.isfinite(lg[:, :vocab]).all())
-    full = prefill(cfg, model, toks, init_cache(cfg, 1, smax, dev), frames=fr).float()
+    full = prefill(cfg, model, toks, init_cache(cfg, 1, smax, dev), mesh=mesh, frames=fr).float()
     ok.append(torch.isfinite(full[:, :vocab]).all())
     check(bool(torch.stack(ok).all()), f"{cfg.name}: non-finite logits ({cfg.dtype}, one sequence)")
     diff = float((lg - full)[:, :vocab].abs().max())
@@ -2598,6 +2642,295 @@ def phase_lm_family(dev, phase: str) -> dict:
     return out
 
 
+# paper: the paper's evaluation script (`python -m repro_torch.kmeans_secure`)
+# on the card; its fit held against the same fit on the CPU
+PAPER_TOL = 1e-4
+
+
+def phase_paper(dev):
+    """`repro_torch.kmeans_secure.main(device="cuda")` whole: the secure fit
+    of 20,000 x 2 points, K = 10, on a one-shard mesh of the card (both
+    kernels launched, counted from 0 just before), the cluster sweep and
+    the paging cliff (host code); the fit's n_iter, rounds and dispatches
+    equal the same fit's on the CPU and its centres within PAPER_TOL; the
+    virtual times and overheads of the sweep and the paged bytes as printed;
+    the script's printed lines."""
+    from repro_torch import kmeans_secure
+    from repro_torch.core.kmeans import generate_points
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ck.launches = kk.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        res, secs = timed(lambda: kmeans_secure.main(device="cuda"))
+    launches = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
+    check(res["device"] == "cuda" and launches["chacha20"] > 0 and launches["kmeans_assign"] > 0,
+          f"paper: the script's fit did not run both kernels on the card ({launches})")
+    pts, true_centers = generate_points(kmeans_secure.N_POINTS, kmeans_secure.K,
+                                        d=kmeans_secure.D, seed=kmeans_secure.SEED,
+                                        spread=kmeans_secure.SPREAD)
+    (card, fit_s), (cpu, cpu_s) = (timed(lambda d=d: kmeans_secure.convergence(
+        pts, true_centers, torch.device(d))) for d in ("cuda", "cpu"))
+    rounds = ("n_iter", "n_rounds_dispatched", "n_dispatches")
+    check(all(res["convergence"][k] == card[k] == cpu[k] for k in rounds),
+          f"paper: rounds differ, card {[card[k] for k in rounds]} CPU {[cpu[k] for k in rounds]}")
+    diff = float(np.abs(card["centers"] - cpu["centers"]).max())
+    check(diff <= PAPER_TOL and np.array_equal(card["centers"], res["convergence"]["centers"]),
+          f"paper: card centres != CPU centres within {PAPER_TOL} ({diff})")
+    conv = {k: v for k, v in res["convergence"].items() if k != "centers"}
+    out = {"phase": "paper", "script": "python -m repro_torch.kmeans_secure",
+           "script_s": secs, "convergence": conv, "fit_card_s": fit_s, "fit_cpu_s": cpu_s,
+           "card_vs_cpu": {"rounds_equal": True, "max_abs_diff_centers": diff,
+                           "tolerance": PAPER_TOL},
+           "overheads": res["overheads"], "paging": res["paging"],
+           "printed": printed.getvalue().splitlines(), "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# lm_dense, lm_moe_shared: glm4-9b (GQA with 2 KV heads, the gated dense MLP)
+# and qwen2-moe-a2.7b (60 routed experts top-4 padded to 64 over 8 virtual
+# shards, 4 shared experts as one of hidden 5,632, a secure exchange) at
+# their published configs, bf16, seeded weights; served only: neither
+# model's float32 Adam state fits one card
+PUBLISHED_PHASES = {
+    "lm_dense": {"arch": "glm4-9b", "shards": 1, "secure": False, "batch": 8,
+                 "prompt": 4096, "decode": 64,
+                 "published": {"family": "dense", "n_layers": 40, "d_model": 4096,
+                               "n_heads": 32, "n_kv_heads": 2, "d_ff": 13696,
+                               "vocab_size": 151552}},
+    "lm_moe_shared": {"arch": "qwen2-moe-a2.7b", "shards": 8, "secure": True, "batch": 8,
+                      "prompt": 4096, "decode": 64,
+                      "published": {"family": "moe", "n_layers": 24, "d_model": 2048,
+                                    "n_heads": 16, "n_kv_heads": 16, "moe_d_ff": 1408,
+                                    "n_experts": 60, "n_experts_per_tok": 4,
+                                    "n_shared_experts": 4, "shared_d_ff": 5632,
+                                    "capacity_factor": 1.25, "vocab_size": 151936}},
+}
+
+
+@contextlib.contextmanager
+def _routing_recorded(e_pad: int, dev):
+    """Inside: the tokens each expert slot is routed (the MoE's `_route`,
+    every layer's, summed on the card) and the tokens the shuffle dropped
+    (`moe_apply`'s count), both as device tensors in the yielded dict."""
+    from repro_torch.models import moe as moe_mod
+
+    rec = {"per_expert": torch.zeros((e_pad,), dtype=torch.int64, device=dev),
+           "dropped": torch.zeros((), dtype=torch.int64, device=dev)}
+    route, apply = moe_mod._route, moe_mod.moe_apply
+
+    def routed(cfg, router_w, x2, e):
+        gates, eidx, aux = route(cfg, router_w, x2, e)
+        rec["per_expert"] += torch.bincount(eidx.reshape(-1).long(), minlength=e_pad)
+        return gates, eidx, aux
+
+    def applied(*args, **kwargs):
+        y, aux, dropped = apply(*args, **kwargs)
+        rec["dropped"] += dropped.to(torch.int64)
+        return y, aux, dropped
+
+    moe_mod._route, moe_mod.moe_apply = routed, applied
+    try:
+        yield rec
+    finally:
+        moe_mod._route, moe_mod.moe_apply = route, apply
+
+
+def phase_lm_published(dev, phase: str) -> dict:
+    """glm4-9b (lm_dense) or qwen2-moe-a2.7b (lm_moe_shared) at its published
+    config (PUBLISHED_PHASES, asserted field by field), bf16 compute, weights
+    from a seeded generator. One sequence in float32: the 16th decode step
+    after a prefill of 4,080 tokens == a prefill of the 4,096 within
+    FAMILY_CONSIST_TOL of the largest logit (qwen2-moe with a capacity that
+    drops no token: a prefill at the published 1.25 drops tokens that decode
+    never drops, so there the two are measured, not held); in bf16
+    measured. The batch: 8 x 4,096 prompt tokens (cut to 4 past
+    LM_PEAK_LIMIT), then 64 sampled decode steps, every logit finite, no
+    ChaCha launch in decode; qwen2-moe's prefill secure, 4 ChaCha launches
+    a layer, plain and secure in turns equal bit for bit (logits and KV
+    cache), every token routed to one of the 60 real experts (the 4 padding
+    experts receive none), the kernel on one leg's wire == plain against
+    its bytes bound; glm4's prefill launches no ChaCha. Prefill ms and
+    prompt tokens/s, the prefill's device operations and idle share, decode
+    ms per step, a profiled step's idle share and device operations, peak
+    memory, the prefill's operations bound and the step's bytes bound."""
+    from dataclasses import asdict
+
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.moe import _capacity, padded_experts
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+    from repro_torch.serve_lm import sample
+    from repro_torch.tools.roofline import model_flops, param_counts
+
+    t_phase = time.perf_counter()
+    spec = PUBLISHED_PHASES[phase]
+    cfg = get_config(spec["arch"])
+    fields = asdict(cfg)
+    check(all(fields[k] == v for k, v in spec["published"].items()),
+          f"{phase}: not the published {spec['arch']} config")
+    moe, shards, vocab = cfg.family == "moe", spec["shards"], cfg.vocab_size
+    mesh = VirtualMesh(shards, dev)
+    sec = _secure_cfg() if spec["secure"] else None
+    e_pad = padded_experts(cfg, shards) if moe else 0
+    ck.launches = kk.launches = 0  # the path
+
+    # 1. one sequence, decode after prefill == prefill, in float32 first
+    f32 = replace(cfg, dtype="float32")
+    m32 = init_params(f32, torch.Generator(device=dev).manual_seed(FAMILY_SEED), shards, dev)
+    consist = {}
+    if moe:
+        consist["float32_published_capacity"] = family_consistency(dev, f32, spec, m32, mesh)
+        f32 = replace(f32, capacity_factor=e_pad / cfg.n_experts_per_tok)
+    consist["float32"] = family_consistency(dev, f32, spec, m32, mesh)
+    consist["float32"].update(tolerance=FAMILY_CONSIST_TOL,
+                              capacity_factor=f32.capacity_factor if moe else None)
+    check(consist["float32"]["rel_diff"] <= FAMILY_CONSIST_TOL,
+          f"{cfg.name}: float32 decode after prefill != prefill ({consist['float32']})")
+    del m32
+    torch.cuda.empty_cache()
+
+    # 2. the bf16 model and the batch
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = timed(lambda: init_params(
+        cfg, torch.Generator(device=dev).manual_seed(FAMILY_SEED), shards, dev))
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    consist["bfloat16"] = family_consistency(dev, cfg, spec, model, mesh)
+    batch, batch_cut, tp, n_dec = spec["batch"], None, spec["prompt"], spec["decode"]
+    smax = tp + n_dec + 2
+    g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1)
+
+    def setup(b):
+        toks = torch.randint(0, vocab, (b, tp), generator=g, device=dev, dtype=torch.int32)
+        return toks, init_cache(cfg, b, smax, dev)
+
+    def run_prefill(secure=sec):
+        return prefill(cfg, model, prompts, cache, mesh=mesh, secure_moe=secure)
+
+    def first_prefill():
+        before = ck.launches
+        with record_wire_bytes() as recs, _routing_recorded(max(e_pad, 1), dev) as routed:
+            lg, s = timed(run_prefill)
+        return lg, s, ck.launches - before, recs, routed
+
+    prompts, cache = setup(batch)
+    lg_first, first_s, launches, recs, routed = first_prefill()
+    if torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
+        batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
+        batch = 4
+        del cache, prompts, lg_first
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        prompts, cache = setup(batch)
+        lg_first, first_s, launches, recs, routed = first_prefill()
+    check(bool(torch.isfinite(lg_first[:, :vocab]).all()), f"{cfg.name}: non-finite prefill logits")
+    runs = {"plain": [], "secure": []}
+    if moe:
+        check(launches == 4 * cfg.n_layers,
+              f"{cfg.name}: {launches} ChaCha launches in a secure prefill, not "
+              f"{4 * cfg.n_layers}")
+        check(len(recs) == 2 * cfg.n_layers and all(r["secure"] for r in recs),
+              f"{cfg.name}: {len(recs)} wire records in a secure prefill")
+        per_expert = routed["per_expert"].cpu()
+        check(int(per_expert[cfg.n_experts:].sum()) == 0
+              and int(per_expert.sum()) == cfg.n_layers * batch * tp * cfg.n_experts_per_tok,
+              f"{cfg.name}: tokens routed to the padding experts ({per_expert.tolist()})")
+        kv_first = cache["k"].clone()
+        for name in ("plain", "secure", "secure", "plain"):
+            lg, s = timed(lambda: run_prefill(sec if name == "secure" else None))
+            runs[name].append(s)
+            check(torch.equal(lg, lg_first), f"{cfg.name}: {name} prefill logits != the first "
+                  "secure prefill's, bit for bit")
+        check(torch.equal(cache["k"], kv_first), f"{cfg.name}: plain KV cache != secure")
+        del kv_first
+    else:
+        check(launches == 0 and not recs, f"{cfg.name}: a dense prefill ran the shuffle")
+        runs["plain"] = [timed(run_prefill)[1] for _ in range(2)]
+    pre_lg, pre_ms, pre_busy, pre_top, pre_ops = _profile_ops(run_prefill)
+    check(torch.equal(pre_lg, lg_first), f"{cfg.name}: profiled prefill logits differ")
+    prefill_s = min(runs["secure"] or runs["plain"])
+
+    # 3. sampled decode steps from the prompt's cache
+    before = ck.launches
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    lg = lg_first
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        lg = decode_step(cfg, model, cache, sample(lg, vocab, 0.8, g), mesh=mesh)
+        ok &= torch.isfinite(lg[:, :vocab]).all()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(bool(ok), f"{cfg.name}: non-finite decode logits")
+    check(ck.launches == before, f"{cfg.name}: decode launched the ChaCha kernel")
+    kv_len = int(cache["pos"][0])
+    nxt = sample(lg, vocab, 0.8, g)
+    _, dec_ms, dec_busy, dec_top, dec_ops = _profile_ops(
+        lambda: decode_step(cfg, model, cache, nxt, mesh=mesh))
+    peak = torch.cuda.max_memory_allocated()
+    flops = (lm_prefill_flops(cfg, batch, tp, shards) if moe
+             else family_prefill_flops(cfg, batch, tp))
+    dec_bytes = lm_decode_bytes(model, cfg, batch, kv_len)
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    del cache, model, lg, lg_first, pre_lg
+    torch.cuda.empty_cache()
+    total, active = param_counts(cfg)
+    shape = replace(get_shape("prefill_32k"), seq_len=tp, global_batch=batch)
+    res = {"phase": phase, "arch": cfg.name, "config": "full (published)",
+           "family": cfg.family, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "vocab": vocab, "shards": shards, "secure": bool(sec),
+           "param_counts": {"total": total, "active": active},
+           "param_bytes": param_bytes, "kv_cache_bytes": kv_bytes, "init_s": init_s,
+           "consistency": consist, "batch": batch, "prompt_tokens": tp, "decode_steps": n_dec,
+           "reduced": {"batch_cut": batch_cut},
+           "first_prefill_s": first_s, "prefill_s_runs": runs, "prefill_ms": 1e3 * prefill_s,
+           "prompt_tokens_per_s": batch * tp / prefill_s,
+           "profiled_prefill_ms": pre_ms, "prefill_device_busy_ms": pre_busy,
+           "prefill_device_idle_share": None if pre_busy is None else 1 - pre_busy / pre_ms,
+           "prefill_device_ops": pre_ops, "prefill_top_device_ops": pre_top,
+           "prefill_flops": flops, "prefill_bound_ms": 1e3 * flops["total"] / PEAK_BF16_S,
+           "prefill_bound_by": "operations", "prefill_model_flops": model_flops(cfg, shape),
+           "decode_ms_per_step": 1e3 * decode_s / n_dec,
+           "decode_tokens_per_s": batch * n_dec / decode_s, "decode_kv_len": kv_len,
+           "profiled_decode_step_ms": dec_ms, "decode_device_busy_ms": dec_busy,
+           "decode_device_idle_share": None if dec_busy is None else 1 - dec_busy / dec_ms,
+           "decode_device_ops": dec_ops, "decode_top_device_ops": dec_top,
+           "decode_step_bytes": dec_bytes, "decode_bound_ms": 1e3 * dec_bytes / PEAK_BYTES_S,
+           "decode_bound_by": "bytes", "peak_memory_bytes": peak,
+           "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
+           "launches": {"chacha20": ck.launches, "kmeans_assign": kk.launches}}
+    check(kk.launches == 0, f"{phase}: the k-means kernel ran")
+    if moe:
+        cap = _capacity(cfg, batch * tp // shards, e_pad)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        send = torch.randint(-2**15, 2**15, (shards, shards, e_pad // shards * cap, cfg.d_model),
+                             dtype=torch.int16, device=dev, generator=gen).view(torch.bfloat16)
+        crypt = wire_crypt(dev, {"x": send}, 5, 0)
+        del send
+        leg_bytes = recs[0]["wire_bytes"] * shards
+        check(crypt["wire_bytes"] == leg_bytes, f"{phase}: the timed wire is not a leg's wire")
+        res.update(experts_padded=e_pad, capacity_per_expert=cap,
+                   tokens_per_expert=per_expert.tolist(), padding_experts_tokens=0,
+                   dropped_tokens_per_prefill=int(routed["dropped"]),
+                   wire_bytes_per_prefill=sum(r["wire_bytes"] for r in recs) * shards,
+                   wire_bytes_per_leg=leg_bytes, chacha=crypt,
+                   plain_prefill_ms=1e3 * min(runs["plain"]),
+                   secure_over_plain=prefill_s / min(runs["plain"]), secure_equals_plain=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
 SERVE_COLD_N, SERVE_SMALL_N, SERVE_CHUNK, SERVE_GREP_CHUNK = 3_000_000, 2_500_000, 2, 4
 _HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
@@ -2811,6 +3144,11 @@ def copy_figures(driver, view, mesh, inputs, init):
             "copy_out_ms": cuda_ms(lambda: tree_map(torch.clone, st.state), 10)}
 
 
+# the cost model's accuracy bar: `benchmarks/bench_costmodel.py`'s, unchanged
+PRED_ERROR_MAX = 0.5
+# per-workload item probes: per-shard sizes, each <= 1/8 of the main path's
+CAL_ITEM_SIZES = {"kmeans": (16384, 32768, 65536), "sort": (65536, 131072, 262144),
+                  "grep": (16384, 32768, 65536)}
 CAL_KNOB_ENVS = ("REPRO_SHUFFLE_COALESCE", "REPRO_CHUNK_GROWTH", "REPRO_STATE_SPECS",
                  "REPRO_BUCKET_GROWTH", "REPRO_SERVICE_MAX_RUNNERS")
 
@@ -2838,13 +3176,66 @@ def phase_calibrate(dev, pts_np, tokens, fit, srt, grp, srv):
     check(not set_knobs, f"knob variables set in the environment: {set_knobs}")
     mesh = VirtualMesh(SHARDS, dev)
     cfg = _secure_cfg()
+    points = torch.from_numpy(pts_np).to(dev)
+    weights = torch.ones((N_POINTS,), dtype=torch.float32, device=dev)
+    values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
+    values = torch.from_numpy(values_np).to(dev)
+    patterns = np.asarray(grp["patterns"], np.int32)
+    threshold = paper_threshold(points)
+
+    def kmeans_spec(n_local):
+        return make_kmeans_iterative_spec(K, mesh, threshold=threshold)
+
+    def kmeans_inputs(n_local):
+        n = n_local * SHARDS
+        return {"p": points[:n], "w": weights[:n]}, points[:K].contiguous()
+
+    def sort_spec(n_local):
+        return make_sample_sort_spec(mesh, n_local, halt_total=n_local * SHARDS,
+                                     balance=SORT_BALANCE, shard_state=True)
+
+    def sort_inputs(n_local):
+        v = values[:n_local * SHARDS]
+        v_np = values_np[:n_local * SHARDS]
+        edges = initial_edges(float(v_np.min()), float(v_np.max()), SHARDS)
+        return {"v": v}, {"edges": torch.from_numpy(edges).to(dev),
+                          "counts": torch.zeros(SHARDS, device=dev),
+                          "sorted": torch.full((SHARDS, SHARDS * n_local), torch.inf,
+                                               device=dev)}
+
+    def grep_spec(n_local):
+        return make_grep_spec(patterns, n_local, mesh)
+
+    def grep_state():
+        return {"hits": torch.zeros(GREP_PATTERNS, device=dev),
+                "cursor": torch.zeros((), dtype=torch.int64, device=dev)}
+
+    def grep_inputs(n_local):
+        return {"t": tokens[:n_local * SHARDS * GREP_ROUNDS]}, grep_state()
+
+    # kind: (spec at n_local items a shard, its inputs and state, the main
+    # path's n_local, the served chunk's rounds)
+    kinds = {"kmeans": (kmeans_spec, kmeans_inputs, N_POINTS // SHARDS, SERVE_CHUNK),
+             "sort": (sort_spec, sort_inputs, SORT_N // SHARDS, SERVE_CHUNK),
+             "grep": (grep_spec, grep_inputs, N_TOKENS // SHARDS // GREP_ROUNDS,
+                      SERVE_GREP_CHUNK)}
     torch.cuda.synchronize()
     ck.launches = kk.launches = 0
     t0 = time.perf_counter()
     cal = calibrate.run_calibration(mesh, quick=True)
+    generic_s = time.perf_counter() - t0
+    # each workload's own item term: its plaintext round at per-shard sizes
+    # of at most 1/8 of the main path's, timed as the served chunk runs
+    items = {kind: calibrate.probe_workload_items(
+        lambda n, spec=spec, rounds=rounds: driver.make_iterative_runner(
+            spec(n), mesh, None, n_rounds=rounds),
+        make, CAL_ITEM_SIZES[kind], target_items=n_local)
+        for kind, (spec, make, n_local, rounds) in kinds.items()}
+    cal = replace(cal, items=items)
     cal_s = time.perf_counter() - t0
     consts = {"chacha": cal.chacha, "all_to_all": cal.all_to_all, "dispatch": cal.dispatch,
-              "round": cal.round, "compile": cal.compile}
+              "round": cal.round, "compile": cal.compile,
+              "items": {k: {f: v[f] for f in ("us_per_item", "base_us")} for k, v in items.items()}}
     numbers = [v for part in consts.values() for e in part.values()
                for v in (e.values() if isinstance(e, dict) else [e])
                if isinstance(v, (int, float)) and not isinstance(v, bool)]
@@ -2891,50 +3282,45 @@ def phase_calibrate(dev, pts_np, tokens, fit, srt, grp, srv):
     check(without == defaults, f"resolvers without a calibration {without} != {defaults}")
 
     # the main path's rounds, traced (one eager round each) and predicted
-    points = torch.from_numpy(pts_np).to(dev)
-    weights = torch.ones((N_POINTS,), dtype=torch.float32, device=dev)
-    values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
-    values = torch.from_numpy(values_np).to(dev)
-    cap = SORT_N // SHARDS
-    chunk = N_TOKENS // SHARDS // GREP_ROUNDS
-    patterns = np.asarray(grp["patterns"], np.int32)
-    workloads = {
-        "kmeans": (make_kmeans_iterative_spec(K, mesh, threshold=paper_threshold(points)),
-                   {"p": points, "w": weights}, points[:K].contiguous(), N_POINTS // SHARDS,
-                   fit["wire_bytes_per_round_per_shard"]),
-        "sort": (make_sample_sort_spec(mesh, cap, halt_total=SORT_N, balance=SORT_BALANCE,
-                                       shard_state=True),
-                 {"v": values},
-                 {"edges": torch.from_numpy(initial_edges(float(values_np.min()),
-                                                          float(values_np.max()),
-                                                          SHARDS)).to(dev),
-                  "counts": torch.zeros(SHARDS, device=dev),
-                  "sorted": torch.full((SHARDS, SHARDS * cap), torch.inf, device=dev)},
-                 SORT_N // SHARDS, srt["wire_bytes_per_round"] // SHARDS),
-        "grep": (make_grep_spec(patterns, chunk, mesh), {"t": tokens},
-                 {"hits": torch.zeros(GREP_PATTERNS, device=dev),
-                  "cursor": torch.zeros((), dtype=torch.int64, device=dev)},
-                 chunk, grp["wire_bytes_per_round"] // SHARDS)}
+    # with their own item terms, held to the reference's accuracy bar
+    wires = {"kmeans": fit["wire_bytes_per_round_per_shard"],
+             "sort": srt["wire_bytes_per_round"] // SHARDS,
+             "grep": grp["wire_bytes_per_round"] // SHARDS}
+    main_inputs = {"kmeans": ({"p": points, "w": weights}, points[:K].contiguous()),
+                   "sort": sort_inputs(SORT_N // SHARDS),
+                   "grep": ({"t": tokens}, grep_state())}
     traces = {}
-    for kind, (spec, inputs, state, n_local, wire) in workloads.items():
-        runner = driver.make_iterative_runner(spec, mesh, cfg, n_rounds=SERVE_CHUNK)
+    for kind, (spec, _, n_local, _) in kinds.items():
+        inputs, state = main_inputs[kind]
+        runner = driver.make_iterative_runner(spec(n_local), mesh, cfg, n_rounds=SERVE_CHUNK)
         tr = perf_model.trace_workload(runner, inputs, state, n_shards=SHARDS,
-                                       n_local_items=n_local)
+                                       n_local_items=n_local, items=cal.items[kind])
+        wire = wires[kind]
         check(cm.predict_wire_bytes(tr) == wire,
               f"{kind}: predicted wire {cm.predict_wire_bytes(tr)} != the path's record {wire}")
         check(tr.secure and tr.keystream_launches == 2 and tr.collectives == 1,
               f"{kind}: traced round {tr}")
         pred_ms = cm.predict_round_us(tr) / 1e3
+        generic_ms = cm.predict_round_us(tr.with_item_us(None)) / 1e3
         measured = srv["chunk_by_kind"][kind]["ms_per_round"]
+        err = abs(pred_ms - measured) / measured
         traces[kind] = {"n_local_items": n_local, "device_ops": tr.n_eqns,
                         "wire_bytes_per_shard": tr.wire_bytes,
                         "keystream_launches": tr.keystream_launches,
                         "keystream_blocks": tr.keystream_blocks,
+                        "item_us": tr.item_us, "item_probe_sizes": items[kind]["sizes"],
+                        "item_probe_round_us": items[kind]["round_us"],
                         "predicted_round_ms": pred_ms, "measured_graph_round_ms": measured,
-                        "pred_over_measured": pred_ms / measured,
+                        "pred_over_measured": pred_ms / measured, "pred_error": err,
+                        "pred_error_max": PRED_ERROR_MAX,
+                        "predicted_round_ms_generic": generic_ms,
+                        "pred_over_measured_generic": generic_ms / measured,
                         "predicted_capture_s": cm.predict_compile_s(tr),
                         "wire_equals_record": True}
-    del points, weights, values, workloads
+        check(err <= PRED_ERROR_MAX,
+              f"{kind}: the cost model's round {pred_ms} ms against the served {measured} ms, "
+              f"error {err} > {PRED_ERROR_MAX}")
+    del points, weights, values, main_inputs
 
     cell_s = {}
     for vname, knobs in hillclimb.SERVICE_VARIANTS:
@@ -2947,6 +3333,8 @@ def phase_calibrate(dev, pts_np, tokens, fit, srt, grp, srv):
     check(launches["chacha20"] > 0 and launches["kmeans_assign"] >= 1,
           f"calibrate path launches {launches}")
     res = {"phase": "calibrate", "shards": SHARDS, "key": cal.key, "calibration_s": cal_s,
+           "generic_calibration_s": generic_s,
+           "item_probe_s": {k: v["probe_s"] for k, v in items.items()},
            "constants": consts, "resolved_under_model": under_model,
            "resolved_without": without, "traces": traces, "hillclimb_S": cell_s,
            "hillclimb_K": {"n_vectors": cell_k["n_vectors"], "best": cell_k["best"],
@@ -3004,6 +3392,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     enc = phase_enclave(dev)
     freed["enclave"] = collect_garbage()
+    paper = phase_paper(dev)
+    freed["paper"] = collect_garbage()
     torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)
     freed["lm_serve"] = collect_garbage()
@@ -3015,6 +3405,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         fam[phase] = phase_lm_family(dev, phase)
         freed[phase] = collect_garbage()
+    pub = {}
+    for phase in PUBLISHED_PHASES:
+        torch.cuda.empty_cache()
+        pub[phase] = phase_lm_published(dev, phase)
+        freed[phase] = collect_garbage()
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -3025,8 +3420,13 @@ def main(argv=None) -> int:
                "calibrate": cal["launches"]["chacha20"],
                "lm_serve": lm["launches"]["chacha20"],
                "lm_train": tr["launches"]["chacha20"],
-               **{phase: res["launches"]["chacha20"] for phase, res in fam.items()}}
-    check(all(v > 0 for v in by_path.values()), f"a path ran no ChaCha launch: {by_path}")
+               **{phase: res["launches"]["chacha20"] for phase, res in fam.items()},
+               "paper": paper["launches"]["chacha20"],
+               **{phase: res["launches"]["chacha20"] for phase, res in pub.items()}}
+    # glm4-9b's dense layers have no expert exchange: its path runs no ChaCha
+    no_chacha = [p for p, spec in PUBLISHED_PHASES.items() if not spec["secure"]]
+    check(all((v == 0) == (p in no_chacha) for p, v in by_path.items()),
+          f"a path ran no ChaCha launch, or a dense one ran some: {by_path}")
     emit({"kernels": [
         {"name": "chacha20_xor_packed", "route": "cuda",
          "source": "src/repro_torch/csrc/chacha20.cu",
@@ -3058,6 +3458,9 @@ def main(argv=None) -> int:
                                                            "bound_by")}
                                  for name, c in res["train"]["chacha"].items()}
                          for phase, res in fam.items()},
+         "ms_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["kernel_ms"],
+         "bound_ms_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["bound_ms"],
+         "lanes_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["lanes"],
          "ms_wordcount_wire": wc["chacha"]["kernel_ms"],
          "bound_ms_wordcount_wire": wc["chacha"]["bound_ms"],
          "lanes_wordcount_wire": wc["chacha"]["lanes"],
@@ -3080,8 +3483,9 @@ def main(argv=None) -> int:
          "launches_per_round": fit["launches"]["kmeans_assign"] / rounds,
          "launches_by_path": {"kmeans": fit["launches"]["kmeans_assign"],
                               "calibrate": cal["launches"]["kmeans_assign"],
+                              "paper": paper["launches"]["kmeans_assign"],
                               **{phase: res["launches"]["kmeans_assign"]
-                                 for phase, res in fam.items()}},
+                                 for phase, res in {**fam, **pub}.items()}},
          "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],

@@ -542,6 +542,23 @@ def keyed_exchange(leaves: list[torch.Tensor], n_shards: int, secure: bool,
     """`keyed_all_to_all` of a list of (S, R, C, ...) leaves as one operator:
     a selective-checkpoint policy can save its outputs by name, and its
     backward is `_exchange_backward`."""
+    return _exchange_op_body(leaves, n_shards, secure, key_words, nonce_words, counter0,
+                             round_index, impl, coalesce)
+
+
+@keyed_exchange.register_fake
+def _(leaves, n_shards, secure, key_words, nonce_words, counter0, round_index, impl,
+      coalesce):
+    # the same exchange on the abstract (meta) tensors: shape-only packing,
+    # the crypt operator's fake and a transpose, so an abstract run
+    # (`repro_torch.launch.dryrun`) records the wire, its collectives and its
+    # kernel calls as a real run does
+    return _exchange_op_body(leaves, n_shards, secure, key_words, nonce_words, counter0,
+                             round_index, impl, coalesce)
+
+
+def _exchange_op_body(leaves, n_shards, secure, key_words, nonce_words, counter0,
+                      round_index, impl, coalesce) -> list:
     mesh = VirtualMesh(n_shards, leaves[0].device)
     cfg = None
     if secure:
@@ -549,6 +566,8 @@ def keyed_exchange(leaves: list[torch.Tensor], n_shards: int, secure: bool,
                                   nonce_words=np.asarray(nonce_words, np.uint32),
                                   counter0=counter0, impl=impl, coalesce=coalesce)
     out = _exchange(list(leaves), mesh, cfg, round_index, coalesce)
+    if leaves[0].device.type == "meta":
+        return [o.clone() for o in out]
     # an operator's outputs own their storage: a leaf the exchange left in
     # place (one shard), or two leaves unpacked from one wire, are copied
     seen = {leaf.untyped_storage().data_ptr() for leaf in leaves}
@@ -559,12 +578,6 @@ def keyed_exchange(leaves: list[torch.Tensor], n_shards: int, secure: bool,
         seen.add(o.untyped_storage().data_ptr())
         owned.append(o)
     return owned
-
-
-@keyed_exchange.register_fake
-def _(leaves, n_shards, secure, key_words, nonce_words, counter0, round_index, impl,
-      coalesce):
-    return [torch.empty_like(leaf) for leaf in leaves]
 
 
 def _exchange_setup(ctx, inputs, output):

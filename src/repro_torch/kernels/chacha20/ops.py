@@ -17,6 +17,14 @@ the card costs one copy back (they are not on the shuffle's path).
 `impl` keeps its name for parity with the JAX package: 'auto' lets the
 tensor's device decide; 'torch' asks for the plain version and is refused
 for a CUDA tensor, where the kernel is the only route.
+
+A tensor that is not on the card goes through the operator
+`torch.ops.repro_torch.chacha20_xor_packed`: its CPU implementation is the
+plain version, and its fake (shape-only) implementation gives an abstract
+run on the `meta` device the output's shape (`repro_torch.launch.dryrun`).
+A CUDA tensor calls the kernel's wrapper directly: through the operator's
+dispatch a warm crypt call took 0.060-0.099 ms of host time on an H100
+against 0.026-0.035 ms direct.
 """
 
 from __future__ import annotations
@@ -30,9 +38,9 @@ from repro_torch.crypto import ctr as _ctr
 from repro_torch.crypto.chacha import CONSTANT_WORDS, as_u32, to_word_bits
 from repro_torch.device import device_constant, resolve_device
 from repro_torch.kernels import kernel_calls, uses_kernel
-from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda
+from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda, params_words
 from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
-from repro_torch.kernels.chacha20.table import block_table, host_u32, row_table
+from repro_torch.kernels.chacha20.table import BlockTable, block_table, host_u32, row_table
 
 
 def ids_on(v, device) -> torch.Tensor:
@@ -47,6 +55,24 @@ def ids_on(v, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=16)
 def _zero_id(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+_lib = torch.library.Library("repro_torch", "FRAGMENT")
+_lib.define("chacha20_xor_packed(Tensor x, Tensor table, bool aligned, int[] params, "
+            "Tensor nonce_ids, Tensor ctr_rows, Tensor? round_dev) -> Tensor")
+
+
+def _xor_packed_cpu(x, table, aligned, params, nonce_ids, ctr_rows, round_dev):
+    return chacha20_xor_packed_ref(x, BlockTable(table, aligned), params[:8], params[8:11],
+                                   params[11], nonce_ids, ctr_rows, round_dev=round_dev)
+
+
+_lib.impl("chacha20_xor_packed", _xor_packed_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::chacha20_xor_packed")
+def _(x, table, aligned, params, nonce_ids, ctr_rows, round_dev):
+    return torch.empty_like(x)
 
 
 def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, ctr_rows,
@@ -68,8 +94,9 @@ def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, c
     if uses_kernel(impl, x):
         return chacha20_xor_packed_cuda(x.contiguous(), table, key_words, nonce_words,
                                         counter0, nonce_ids, ctr_rows, round_dev=round_dev)
-    return chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0,
-                                   nonce_ids, ctr_rows, round_dev=round_dev)
+    params = [int(v) for v in params_words(key_words, nonce_words, counter0)]  # key, nonce, ctr
+    return torch.ops.repro_torch.chacha20_xor_packed(x, table.words, table.aligned, params,
+                                                     nonce_ids, ctr_rows, round_dev)
 
 
 def make_state0(key_words, nonce_words, counter0, device=None) -> torch.Tensor:

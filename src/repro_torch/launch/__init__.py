@@ -1,2 +1,2 @@
 """Launch tools of the port (`hillclimb`: the offline knob search, cells S
-and K)."""
+and K; `dryrun`: every (arch x shape) cell run abstractly on one card)."""

@@ -19,7 +19,13 @@ per (backend, device count) and kept in JSON:
                  runner's capture seconds and device operations;
   compile        seconds per device operation + base, from the capture of two
                  CUDA graphs of different lengths (the floor for rounds with
-                 no keystream in them).
+                 no keystream in them);
+  items[kind]    optional, per workload: us per mapped item + us per round of
+                 the workload's OWN plaintext round, fitted over small
+                 per-shard sizes (`probe_workload_items`); the cost model
+                 prices that workload's items with it in place of `round`'s
+                 generic slope, which cannot price k-means' distances, sort's
+                 reducer sorts or grep's pattern match.
 
 What differs from the reference, and why:
 
@@ -116,6 +122,7 @@ class Calibration:
     schema: int = SCHEMA
     extra: dict = field(default_factory=dict)
     n_shards: int = 1
+    items: dict = field(default_factory=dict)  # kind -> `probe_workload_items` result
 
     @property
     def key(self) -> str:
@@ -336,8 +343,8 @@ def _probe_round(mesh, sizes, n_rounds: int, reps: int) -> dict:
 
     The intercept prices what a round pays whatever its payload (the
     runner's call, bucket_pack's bookkeeping, the exchange's base cost); the
-    slope prices per-mapped-item work. Workload map/reduce math rides on the
-    slope, so a heavy map_fn is the model's known blind spot.
+    slope prices per-mapped-item work. A workload whose map/reduce math
+    this slope cannot price gets its own (`probe_workload_items`).
     """
     s = mesh.n_shards
     xs, entries = [], []
@@ -396,6 +403,48 @@ def _probe_compile(mesh, reps: int) -> dict:
             ys[i] = min(ys[i], capture_s(f, x))
     slope, intercept = _fit_line(xs, ys)
     return {"s_per_eqn": slope, "base_s": intercept}
+
+
+def probe_workload_items(runner_factory, make_inputs, sizes, *, target_items: int,
+                         reps: int = 7) -> dict:
+    """A workload's own item term: its PLAINTEXT round at small per-shard sizes.
+
+    `runner_factory(n_local)` builds the workload's plaintext runner (as a
+    runner cache would: on the card a CUDA graph of one round) for `n_local`
+    items a shard, and `make_inputs(n_local)` gives its (inputs, state).
+    Each size's runner is timed by `_interleaved_best_us` (warmed first,
+    trials interleaved, the least kept) and divided by the rounds the call
+    executed; `_fit_line` fits (us_per_item, base_us) over the sizes. Every
+    size must be at most 1/8 of `target_items`, the per-shard size the term
+    will price, so a prediction made with it extrapolates and never measures
+    the cell it predicts. `probe_s` is the probe's own wall time, capture
+    included.
+    """
+    sizes = [int(n) for n in sizes]
+    if len(sizes) < 2 or len(set(sizes)) < 2:
+        raise ValueError(f"need two or more distinct sizes to fit a line, got {sizes}")
+    over = [n for n in sizes if n < 1 or 8 * n > target_items]
+    if over:
+        raise ValueError(f"probe sizes {over} are not in [1, {target_items // 8}]: each must "
+                         f"be at most 1/8 of the {target_items} items a shard it predicts")
+    t0 = time.perf_counter()
+    entries, executed = [], []
+    for n in sizes:
+        runner = runner_factory(n)
+        inputs, state = make_inputs(n)
+        done: dict = {}
+
+        def call(runner=runner, inputs=inputs, state=state, done=done):
+            done["rounds"] = int(runner(inputs, state, 0)[3])
+
+        entries.append((call, ()))
+        executed.append(done)
+    best = _interleaved_best_us(entries, reps=reps)
+    round_us = [us / max(1, d["rounds"]) for us, d in zip(best, executed)]
+    slope, intercept = _fit_line(sizes, round_us)
+    return {"us_per_item": slope, "base_us": intercept, "sizes": sizes,
+            "round_us": round_us, "rounds_per_call": [d["rounds"] for d in executed],
+            "target_items": int(target_items), "probe_s": time.perf_counter() - t0}
 
 
 # -- entry points ------------------------------------------------------------

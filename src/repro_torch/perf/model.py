@@ -6,16 +6,21 @@ it: `trace_workload` runs one eager round of a runner's spec on its mesh
 inside `record_wire_bytes()` and `tools/opcount.counting()`, so the wire
 bytes, exchanges, keystream launches and ChaCha blocks are the round's own
 records, and the device operations its own count (the reference reads them
-off a jaxpr without running; the port has nothing abstract to trace).
+off a jaxpr without running).
 Predictions multiply those counts by the constants of a `Calibration`:
 
     round_us   = launches·launch_us + eff_blocks·us_per_block      (crypto)
                + collectives·a2a.base_us + wire_bytes·a2a.us_per_byte
-               + round.base_us + n_local·round.us_per_item         (compute)
+               + round.base_us + n_local·item_us                   (compute)
     compile_s  = device ops scaled by the probe round most like this one
                  (the chacha probe's capture for a secure round, the round
                  probe's for a plaintext one), floored by the capture line
     wire_bytes = straight off the round's record (exact)
+
+`item_us` is the trace's own per-workload slope when it carries one
+(`RoundTrace.item_us`, from `calibrate.probe_workload_items`), else the
+round probe's generic `round.us_per_item`, which makes the model the
+reference's bit for bit.
 
 Knob recommendations (`recommendation(knob)`) are what the `auto` resolvers
 of `core/shuffle.py`, `core/driver.py` and `serve/service.py` consult; the
@@ -29,15 +34,16 @@ has one loop shape; it has no `masked_scan`), and `$REPRO_CHACHA_IMPL` (on
 the card the kernel is the only route). `recommend_chacha_impl` answers a
 selector of `repro_torch.kernels.IMPLS` that the calibrated device accepts.
 
-Known blind spot: workload map/reduce math is priced per ITEM with one
+A trace without its own item term prices workload map/reduce math with one
 generic slope (the round probe's), so a map_fn doing heavy per-item math
-(k-means' distances) is under-predicted.
+(k-means' distances) is under-predicted: give such a workload its probe.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import ClassVar
 
 from repro_torch.perf.calibrate import (
     CALIBRATION_ENV,
@@ -62,6 +68,16 @@ class RoundTrace:
     n_local_items: int
     secure: bool
     coalesced: bool
+    # The workload's own us per mapped item (`calibrate.probe_workload_items`),
+    # or None for the calibration's generic slope. Not a dataclass field: a
+    # trace's fields stay the reference's, one for one; `with_item_us` sets it.
+    item_us: ClassVar[float | None] = None
+
+    def with_item_us(self, item_us: float | None) -> "RoundTrace":
+        """This trace priced with its own item term (None: the generic one)."""
+        out = replace(self)
+        object.__setattr__(out, "item_us", None if item_us is None else float(item_us))
+        return out
 
     @property
     def blocks_per_launch_row(self) -> int:
@@ -73,14 +89,15 @@ class RoundTrace:
 
 
 def trace_workload(runner, inputs, state, *, n_shards: int,
-                   n_local_items: int, round_offset=0) -> RoundTrace:
+                   n_local_items: int, round_offset=0, items: dict | None = None) -> RoundTrace:
     """Run one eager round of `runner`'s job and distill it into a `RoundTrace`.
 
     `runner` is what `make_iterative_runner` built (its spec, mesh, secure
     config and wire layout are used; its captures and static buffers are
     not touched). The round runs at `round_offset` on `inputs` and `state`,
     which it does not change, and its result is dropped; `halted` records
-    are dropped too.
+    are dropped too. `items`, the workload's `probe_workload_items` result,
+    gives the trace its own item term; without it the trace has none.
     """
     from repro_torch.core.driver import _EagerRunner
     from repro_torch.core.shuffle import record_wire_bytes
@@ -103,7 +120,7 @@ def trace_workload(runner, inputs, state, *, n_shards: int,
         n_local_items=int(n_local_items),
         secure=bool(rec["secure"]),
         coalesced=bool(rec["coalesced"]),
-    )
+    ).with_item_us(None if items is None else items["us_per_item"])
 
 
 def _port_impls(backend: str) -> tuple:
@@ -134,8 +151,9 @@ class CostModel:
     def predict_round_us(self, trace: RoundTrace, impl: str | None = None) -> float:
         """Steady-state microseconds for ONE executed round."""
         cal = self.cal
+        item_us = cal.round["us_per_item"] if trace.item_us is None else trace.item_us
         us = (cal.round["base_us"]
-              + trace.n_local_items * cal.round["us_per_item"]
+              + trace.n_local_items * item_us
               + trace.collectives * cal.all_to_all["base_us"]
               + trace.wire_bytes * cal.all_to_all["us_per_byte"])
         if trace.keystream_launches:

@@ -1,2 +1,3 @@
 """Introspection helpers of the port (`opcount`: what one run of a function
-did, counted)."""
+did, counted; `roofline`: parameter and model-FLOP counts and the card's
+roofline terms; `report_md`: the dry-run's tables)."""

@@ -457,3 +457,94 @@ def test_knobs_resolve_once_per_runner_never_per_round(no_cal, monkeypatch):
         while True:
             next(gen)
     assert stop.value.value.rounds_executed == 4
+
+
+# --- the per-workload item term ----------------------------------------------
+
+
+def _sized_runner(n_local: int):
+    """The file's plaintext probe workload, built for `n_local` items a shard."""
+    return _runner(None)
+
+
+def _sized_inputs(n_local: int):
+    return {"x": torch.ones(n_local)}, {"s": torch.zeros(())}
+
+
+def test_probe_workload_items_refuses_sizes_past_an_eighth():
+    """Every probed size must be at most 1/8 of the size it predicts (so a
+    prediction extrapolates), and a line needs two distinct sizes."""
+    with pytest.raises(ValueError, match="1/8"):
+        tcal.probe_workload_items(_sized_runner, _sized_inputs, [16, 129], target_items=1024)
+    with pytest.raises(ValueError, match="1/8"):
+        tcal.probe_workload_items(_sized_runner, _sized_inputs, [0, 16], target_items=1024)
+    with pytest.raises(ValueError, match="two or more"):
+        tcal.probe_workload_items(_sized_runner, _sized_inputs, [16, 16], target_items=1024)
+    # exactly 1/8 is allowed
+    got = tcal.probe_workload_items(_sized_runner, _sized_inputs, [16, 128],
+                                    target_items=1024, reps=2)
+    assert got["sizes"] == [16, 128] and got["target_items"] == 1024
+
+
+def test_probe_workload_items_fits_the_workloads_own_round(no_cal):
+    """A CPU probe of a plaintext workload: one round per size, each call's
+    executed rounds counted (2 per call of the file's 2-round runner), a
+    finite line >= 0, and the probe's own seconds."""
+    got = tcal.probe_workload_items(_sized_runner, _sized_inputs, [8, 32, 64],
+                                    target_items=512, reps=3)
+    assert got["rounds_per_call"] == [2, 2, 2]
+    assert len(got["round_us"]) == 3 and all(us > 0 for us in got["round_us"])
+    for k in ("us_per_item", "base_us", "probe_s"):
+        assert np.isfinite(got[k]) and got[k] >= 0
+    assert got["probe_s"] > 0
+
+
+@pytest.mark.parametrize("trace", TRACES, ids=["kmeans-wire", "per-leaf", "plain", "tiny"])
+def test_trace_with_item_us_is_priced_by_it(trace):
+    """Without an item term the port's prediction is the reference's bit for
+    bit; with one, only the item term moves, by n_local x (item_us - the
+    generic slope), and the reference's fields are untouched."""
+    d = _shared_dict()
+    port = CostModel(Calibration.from_dict(d))
+    ref = jmodel.CostModel(jcal.Calibration.from_dict(d))
+    assert trace.item_us is None
+    assert port.predict_round_us(trace.with_item_us(None)) == ref.predict_round_us(
+        jmodel.RoundTrace(**dataclasses.asdict(trace)))
+    priced = trace.with_item_us(0.25)
+    assert priced.item_us == 0.25 and trace.item_us is None
+    assert dataclasses.asdict(priced) == dataclasses.asdict(trace)
+    want = port.predict_round_us(trace) + trace.n_local_items * (0.25 - d["round"]["us_per_item"])
+    assert port.predict_round_us(priced) == pytest.approx(want, rel=1e-12, abs=1e-9)
+    # everything else the model answers ignores the term
+    assert port.predict_compile_s(priced) == port.predict_compile_s(trace)
+    assert port.predict_wire_bytes(priced) == port.predict_wire_bytes(trace)
+
+
+def test_trace_workload_takes_its_term_from_a_probe_result(no_cal):
+    """trace_workload fills item_us only when given a probe result."""
+    sec = secure_config(chacha.key_to_words(bytes(range(32))),
+                        chacha.nonce_to_words(b"\x05" * 12))
+    inputs, state = {"x": torch.ones(16)}, {"s": torch.zeros(())}
+    plain = trace_workload(_runner(sec), inputs, state, n_shards=1, n_local_items=16)
+    probed = trace_workload(_runner(sec), inputs, state, n_shards=1, n_local_items=16,
+                            items={"us_per_item": 3.0, "base_us": 1.0})
+    assert plain.item_us is None and probed.item_us == 3.0
+    model = CostModel(_cal())
+    assert model.predict_round_us(probed) - model.predict_round_us(plain) == pytest.approx(
+        16 * (3.0 - 0.01))
+
+
+@pytest.mark.parametrize("items", [{}, {"kmeans": {"us_per_item": 0.004, "base_us": 120.0,
+                                                  "sizes": [16384, 65536],
+                                                  "round_us": [185.5, 382.0]}}],
+                         ids=["without", "with"])
+def test_calibration_json_roundtrips_with_and_without_the_term(tmp_path, items):
+    """A calibration with and without per-workload item terms survives the
+    JSON file; an entry written before the terms existed loads with none."""
+    cal = dataclasses.replace(_cal(), items=items)
+    path = str(tmp_path / "calib.json")
+    tcal.save_calibration(cal, path)
+    back = tcal.load_calibration(path)
+    assert back == cal and back.items == items
+    old = {k: v for k, v in cal.to_dict().items() if k != "items"}
+    assert Calibration.from_dict(old).items == {}

@@ -1357,3 +1357,90 @@ def test_frames_decrypt_on_card_equals_cpu_arx(cuda):
     for name, plain in (("tokens", toks), ("frames", frames)):
         assert torch.equal(got[name].cpu(), want[name]), name
         assert torch.equal(want[name], plain), name
+
+
+# --- the eleventh slice: the cost model's item term, the paper's script, the
+# dense and shared-expert models at full width ---------------------------------
+
+
+@pytest.mark.gpu
+def test_probe_workload_items_on_card(cuda):
+    """The per-workload item probe through the card's graph runner: secure
+    k-means' own plaintext round at three small sizes, a finite line >= 0,
+    two rounds a call, and a trace priced by it."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core.driver import make_iterative_runner
+    from repro_torch.core.kmeans import make_kmeans_iterative_spec
+    from repro_torch.perf import calibrate
+    from repro_torch.perf.model import CostModel, trace_workload
+
+    mesh = VirtualMesh(8, cuda)
+    pts = torch.from_numpy(generate_points(8 * 8192, 16, d=8, seed=3)[0]).to(cuda)
+    spec = make_kmeans_iterative_spec(16, mesh, threshold=0.0)
+
+    def inputs(n):
+        return {"p": pts[:8 * n], "w": torch.ones(8 * n, device=cuda)}, pts[:16].contiguous()
+
+    got = calibrate.probe_workload_items(
+        lambda n: make_iterative_runner(spec, mesh, None, n_rounds=2), inputs,
+        [256, 512, 1024], target_items=8192, reps=3)
+    assert got["rounds_per_call"] == [2, 2, 2]
+    assert all(np.isfinite(got[k]) and got[k] >= 0 for k in ("us_per_item", "base_us"))
+    cal = calibrate.run_calibration(mesh, quick=True)
+    runner = make_iterative_runner(spec, mesh, _cfg(), n_rounds=2)
+    tr = trace_workload(runner, *inputs(8192), n_shards=8, n_local_items=8192, items=got)
+    assert tr.item_us == got["us_per_item"]
+    model = CostModel(cal)
+    assert model.predict_round_us(tr) - model.predict_round_us(tr.with_item_us(None)) == \
+        pytest.approx(8192 * (got["us_per_item"] - cal.round["us_per_item"]), rel=1e-9, abs=1e-6)
+
+
+@pytest.mark.gpu
+def test_paper_script_on_card_equals_cpu(cuda):
+    """`python -m repro_torch.kmeans_secure` on the card: the fit's n_iter
+    and rounds equal the CPU's and its centres within 1e-4 (float sums in
+    another order); both kernels launched."""
+    from repro_torch import kmeans_secure
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+
+    before = (ck.launches, kk.launches)
+    card = kmeans_secure.main(device="cuda")
+    assert ck.launches > before[0] and kk.launches > before[1]
+    pts, true_centers = generate_points(kmeans_secure.N_POINTS, kmeans_secure.K,
+                                        d=kmeans_secure.D, seed=kmeans_secure.SEED,
+                                        spread=kmeans_secure.SPREAD)
+    cpu = kmeans_secure.convergence(pts, true_centers, torch.device("cpu"))
+    for k in ("n_iter", "n_rounds_dispatched", "n_dispatches"):
+        assert card["convergence"][k] == cpu[k], k
+    np.testing.assert_allclose(card["convergence"]["centers"], cpu["centers"], atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shards,secure", [("glm4-9b", 1, False),
+                                                ("qwen2-moe-a2.7b", 8, True)])
+def test_published_width_depth_2_card_equals_cpu(cuda, arch, shards, secure):
+    """glm4-9b (GQA with 2 KV heads) and qwen2-moe-a2.7b (60 experts padded to
+    64 over 8 shards, shared experts, a secure exchange) at their published
+    widths, 2 layers, float32: a prefill of 16 tokens and two decode steps,
+    the card within rtol/atol 1e-3 (chip_smoke's LM_SMALL_TOL) of the CPU's
+    plain versions."""
+    from dataclasses import replace
+
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, init_params
+
+    cfg = replace(get_config(arch), n_layers=2, dtype="float32")
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), shards, "cpu")
+    card_model = LM(cfg, shards, cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    sec = _cfg() if secure else None
+    want, _ = _lm_serve(cfg, cpu_model, toks, VirtualMesh(shards, "cpu"), sec)
+    del cpu_model
+    got, _ = _lm_serve(cfg, card_model, toks.to(cuda), VirtualMesh(shards, cuda), sec)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g.float().cpu(), w_.float(), rtol=1e-3, atol=1e-3)

@@ -296,3 +296,67 @@ def test_remat_none_equals_sqrt(arch):
     for name in gq:
         assert torch.equal(gq[name], gn[name]), name
     assert all(bool(torch.isfinite(g).all()) for g in gq.values())
+
+
+# zamba2 with a mamba layer after its last shared block: 5 layers, the shared
+# block after every 2 (the published config's 38 layers at every 6 leave 2)
+REMAINDER_LAYERS = 5
+
+
+@lru_cache(maxsize=None)
+def reference_remainder() -> dict:
+    """The reference's 5-layer reduced zamba2: forward logits, a prefill of
+    16 tokens and two decode steps, and the cache."""
+    cfg = replace(jget("zamba2-1.2b").reduced(), n_layers=REMAINDER_LAYERS)
+    params = jax.jit(lambda k: jlm.init_params(cfg, k))(jax.random.key(4))
+    toks, _ = inputs(cfg, 7)
+    tokens = jnp.asarray(toks)
+    out = {"params": jax.tree.map(np.asarray, params), "tokens": toks,
+           "logits": np.asarray(jax.jit(lambda p, t: jlm.forward(cfg, p, {"tokens": t})[0])(
+               params, tokens))}
+    pre = jax.jit(lambda p, t, c: jeng.prefill(cfg, p, t, c))
+    dec = jax.jit(lambda p, c, t: jeng.decode_step(cfg, p, c, t))
+    lg, cache = pre(params, tokens[:, :TP], jeng.init_cache(cfg, B, SMAX))
+    out["serve"] = [np.asarray(lg, np.float32)]
+    for i in (0, 1):
+        lg, cache = dec(params, cache, tokens[:, TP + i:TP + i + 1])
+        out["serve"].append(np.asarray(lg))
+    out["cache"] = {k: np.asarray(v) for k, v in cache.items()}
+    return out
+
+
+def _remainder_cfg():
+    cfg = replace(get_config("zamba2-1.2b").reduced(), n_layers=REMAINDER_LAYERS)
+    every = cfg.attn_every
+    assert cfg.n_layers % every and cfg.n_layers > (cfg.n_layers // every) * every
+    return cfg
+
+
+def test_zamba2_remainder_forward_matches_reference():
+    """A mamba layer runs after the last shared block (`_walk_hybrid`'s
+    remainder): the forward's logits within 1e-4."""
+    cfg = _remainder_cfg()
+    ref = reference_remainder()
+    model = port_model(cfg, ref["params"])
+    logits, _ = forward(cfg, model, {"tokens": torch.from_numpy(ref["tokens"])})
+    np.testing.assert_allclose(logits.numpy(), ref["logits"], rtol=1e-4, atol=1e-4)
+
+
+def test_zamba2_remainder_prefill_decode_and_caches_match_reference():
+    """The engine's hybrid branches with the remainder layer: prefill and two
+    decode steps' logits within 1e-4, and every cache entry (the remainder
+    layer's SSM state and conv among them) within 1e-4."""
+    cfg = _remainder_cfg()
+    ref = reference_remainder()
+    model = port_model(cfg, ref["params"])
+    t = torch.from_numpy(ref["tokens"])
+    cache = init_cache(cfg, B, SMAX, "cpu")
+    got = [prefill(cfg, model, t[:, :TP], cache)]
+    for i in (0, 1):
+        got.append(decode_step(cfg, model, cache, t[:, TP + i:TP + i + 1]))
+    for g, w in zip(got, ref["serve"]):
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=1e-4, atol=1e-4)
+    assert set(cache) == set(ref["cache"])
+    assert cache["ssm_h"].shape[0] == REMAINDER_LAYERS
+    for k, v in cache.items():
+        np.testing.assert_allclose(v.numpy(), ref["cache"][k], rtol=1e-4, atol=1e-4, err_msg=k)

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs twenty-one phases, each printing one JSON line, and a twenty-second
-line:
+then runs twenty-four phases, each printing one JSON line, and a
+twenty-fifth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -180,7 +180,15 @@ line:
                  items, peak memory, the step's operations bound; the
                  kernel on the ingest wire (and the frames) == plain bit
                  for bit against its bound; the reduced model card == CPU
-                 after two steps (lm_train's rule)
+                 after two steps (lm_train's rule). lm_hybrid also holds
+                 the published 38 layers on the card against the CPU's
+                 plain path in float32 on the same seeded weights: a
+                 64-token sequence's forward logits, its prefill and 2
+                 decode steps and every cache entry within 4x the CPU's
+                 own response to rounding-size weight changes, and the two
+                 mamba layers after the sixth shared block, fed one hidden
+                 state, within HYBRID_CPU_TOL (1e-4) of their largest
+                 magnitude
   lm_dense       glm4-9b (40 layers, d_model 4096, 32 heads with 2 KV
   lm_moe_shared  heads, d_ff 13,696) and qwen2-moe-a2.7b (24 layers, 60
                  routed experts top-4 padded to 64 over 8 virtual shards, 4
@@ -200,6 +208,39 @@ line:
                  operations and idle share, decode ms per step, a profiled
                  step's idle share and operations, peak memory, the
                  prefill's operations bound and the step's bytes bound
+  lm_mqa         granite-20b (52 layers, d_model 6144, 48 heads with one KV
+  lm_vlm         head, d_ff 24,576; 55.7 GB of bf16 weights) and
+                 chameleon-34b (48 layers, d_model 8192, 64 heads with 8 KV
+                 heads, d_ff 22,016, qk_norm; 67.5 GB), asserted field by
+                 field, bf16, seeded weights, served plain as lm_dense
+                 serves glm4-9b, but: at entry less than 1 GB allocated
+                 (the job service's runner cache released), the free bytes
+                 reported; the float32 consistency at the published widths
+                 4 layers deep (float32 weights of the full depth do not
+                 fit), the bf16 one on the full model; the batch reckoned
+                 from bytes before any prefill (`serve_batch`: 8 halved
+                 until the weights, the KV cache, the float32 score chunk
+                 and the activations fit), reported with the cuts in
+                 `reduced`; 0 ChaCha and 0 k-means launches
+  hillclimb_lm   hillclimb cells A, B and C of `repro_torch.launch.hillclimb`
+                 on the card (`measure_lm_cell`): every variant's step, one
+                 warm-up and the median of 3, host clock to a synchronise;
+                 ms, tokens/s, peak memory, ChaCha launches a step, beside
+                 its abstract counts at the same shape (one process
+                 started with the script counts them on `meta`). A:
+                 rwkv6-1.6b training at 4 x 4,096 (batch halved if a
+                 variant's step, reckoned from one at batch 1, would not
+                 fit), the per-token scan and the blocked WKV beside it at
+                 4 x 64; B: qwen2-moe-a2.7b decode at a 32,768-token
+                 context, the cache filled with seeded random K/V, float32
+                 weights (v3: bf16, asserted half the bytes), the batch
+                 reckoned beside them; C: granite-moe-3b-a800m training at
+                 4 x 1,024 with secure ingest: ChaCha launches a step
+                 asserted 1 + 8 a layer for v0, v1, v2, v4 (v0 inherits the
+                 config's save_shuffle), 1 for v3, and more than v1's for
+                 the port's x0 (the full MoE remat replays the exchange),
+                 each equal to its abstract count plus the ingest; v4 runs
+                 v1's program and their difference is the noise reading
   memory         the device bytes that collecting the interpreter's
                  reference cycles freed after each phase (collected before
                  the next phase, whose peak memory then counts only what is
@@ -208,9 +249,10 @@ line:
                  and library times; each kernel's launches on each path
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
                  calibrate, paper, lm_serve, lm_train, lm_ssm, lm_hybrid,
-                 lm_audio, lm_moe_shared, and 0 on lm_dense, which has no
-                 exchange; k-means: k-means, calibrate, paper, and 0 on the
-                 five LM family paths),
+                 lm_audio, lm_moe_shared, hillclimb_lm (by cell, and per
+                 step by variant of C), and 0 on lm_dense, lm_mqa and
+                 lm_vlm, which have no exchange; k-means: k-means,
+                 calibrate, paper, and 0 on the LM paths),
                  each counted from 0
                  just before that
                  path's run, and on the serve path (by profiler: replayed
@@ -236,6 +278,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from dataclasses import replace
@@ -2572,6 +2615,108 @@ def family_train_small(dev, arch: str) -> dict:
             "params_compared_where": "gradient >= 1e-2 x the leaf's largest at both steps"}
 
 
+# zamba2's published 38 layers on the card against the CPU in float32. The
+# two remainder layers (after the sixth shared block), fed one hidden state
+# on both, are held within HYBRID_CPU_TOL. The whole model is held within
+# HYBRID_SENS_X times the CPU's own response to a rounding-size change of
+# its weights (each multiplied by 1 + 2**-24 x N(0, 1)), which the check
+# measures: through 38 layers of seeded random weights such a change moves
+# the logits by more than 1e-4 of their largest, and a wrong walk moves
+# them by their own size.
+HYBRID_CPU_TOL, HYBRID_SENS_X, HYBRID_CPU_PROMPT, HYBRID_CPU_DECODE = 1e-4, 4.0, 64, 2
+
+
+def _rel(got: dict, want: dict) -> dict:
+    """{entry: max |got - want| / max |want|} over float entries; integer
+    entries must be equal."""
+    out = {}
+    for k, w in want.items():
+        if not w.is_floating_point():
+            check(torch.equal(got[k], w), f"{k}: integer entries differ")
+            continue
+        out[k] = float((got[k] - w).abs().max()) / (float(w.abs().max()) or 1.0)
+    return out
+
+
+def hybrid_card_vs_cpu(dev, cfg) -> dict:
+    """zamba2 at its published 38 layers, float32, one seeded model on the
+    card and the same weights on the CPU (the plain path). The whole model:
+    a 64-token sequence's forward logits, its prefill and 2 decode steps,
+    and every cache entry (the remainder layers' SSM states and conv among
+    them), held within HYBRID_SENS_X x the CPU's response to rounding-size
+    weight changes, entry by entry at the worst. The remainder alone: layers
+    36 and 37 walked as a prefill from one seeded hidden state, then one
+    decode step each, on both: outputs, SSM states and conv states within
+    HYBRID_CPU_TOL of their largest magnitude."""
+    import copy
+
+    from repro_torch.models import blocks as B
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.lm import forward, init_params
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    f32 = replace(cfg, dtype="float32")
+    every = f32.attn_every
+    tail = list(range((f32.n_layers // every) * every, f32.n_layers))
+    check(len(tail) == 2, f"{cfg.name}: {len(tail)} layers after the last shared block, not 2")
+    card = init_params(f32, torch.Generator(device=dev).manual_seed(FAMILY_SEED + 4), 1, dev)
+    host = copy.deepcopy(card).to("cpu")
+    nudged = copy.deepcopy(host)
+    g = torch.Generator().manual_seed(FAMILY_SEED + 5)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + 2.0**-24 * torch.randn(p.shape, generator=g))
+    n = HYBRID_CPU_PROMPT + HYBRID_CPU_DECODE
+    toks = torch.randint(0, f32.vocab_size, (1, n), generator=g, dtype=torch.int32)
+    x0 = torch.randn((1, HYBRID_CPU_PROMPT, f32.d_model), generator=g)
+    xt = torch.randn((1, 1, f32.d_model), generator=g)
+
+    def run(model, device):
+        t = toks.to(device)
+        with torch.no_grad():
+            outs = {"forward": forward(f32, model, {"tokens": t[:, :HYBRID_CPU_PROMPT]})[0]}
+            cache = init_cache(f32, 1, n + 1, device)
+            outs["prefill"] = prefill(f32, model, t[:, :HYBRID_CPU_PROMPT], cache)
+            for i in range(HYBRID_CPU_DECODE):
+                j = HYBRID_CPU_PROMPT + i
+                outs[f"decode_{i + 1}"] = decode_step(f32, model, cache, t[:, j:j + 1])
+            outs.update({f"cache_{k}": v for k, v in cache.items()})
+            x, xd = x0.to(device), xt.to(device)  # the remainder alone
+            for i in tail:
+                p = model.layers[i]
+                x, h, conv = B.apply_mamba_block(f32, p, x)
+                y, h1, conv1 = ssm.ssm_decode_step(f32, p.ssm, apply_norm(f32, p.ln1, xd), h,
+                                                   conv)
+                xd = xd + y
+                outs.update({f"tail{i}_prefill_out": x, f"tail{i}_ssm_h": h,
+                             f"tail{i}_conv": conv, f"tail{i}_decode_out": xd,
+                             f"tail{i}_decode_ssm_h": h1, f"tail{i}_decode_conv": conv1})
+        return {k: v.float().cpu() if v.is_floating_point() else v.cpu() for k, v in outs.items()}
+
+    (got, card_s), (want, cpu_s) = timed(lambda: run(card, dev)), timed(lambda: run(host, "cpu"))
+    sens = _rel(run(nudged, "cpu"), want)
+    del card, host, nudged
+    rel = _rel(got, want)
+    whole = {k: v for k, v in rel.items() if not k.startswith("tail")}
+    alone = {k: v for k, v in rel.items() if k.startswith("tail")}
+    bound = HYBRID_SENS_X * max(v for k, v in sens.items() if not k.startswith("tail"))
+    check(max(alone.values()) <= HYBRID_CPU_TOL,
+          f"{cfg.name}: the remainder layers on the card != the CPU within {HYBRID_CPU_TOL}: "
+          f"{alone}")
+    check(max(whole.values()) <= bound,
+          f"{cfg.name}: card != CPU at 38 layers past {HYBRID_SENS_X} x the rounding "
+          f"sensitivity {bound / HYBRID_SENS_X:.3g}: {whole}")
+    return {"n_layers": f32.n_layers, "remainder_layers": tail,
+            "prompt_tokens": HYBRID_CPU_PROMPT, "decode_steps": HYBRID_CPU_DECODE,
+            "max_rel_diff_whole": whole, "cpu_rounding_sensitivity": {
+                k: v for k, v in sens.items() if not k.startswith("tail")},
+            "whole_bound": bound, "max_rel_diff_remainder_alone": alone,
+            "remainder_tolerance": HYBRID_CPU_TOL,
+            "whole_within_1e-4": max(whole.values()) <= HYBRID_CPU_TOL,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
 def phase_lm_family(dev, phase: str) -> dict:
     """One of the ssm, hybrid and audio families at its published config
     (FAMILY_PHASES), bf16 compute, weights from a seeded generator.
@@ -2604,6 +2749,7 @@ def phase_lm_family(dev, phase: str) -> dict:
     check(all(fields[k] == v for k, v in spec["published"].items()),
           f"{phase}: not the published {spec['arch']} config")
     ck.launches = kk.launches = 0  # the path: serving, then training
+    card_vs_cpu = hybrid_card_vs_cpu(dev, cfg) if cfg.family == "hybrid" else None
     serve = _family_serve(dev, cfg, spec)
     batch, seq = spec["train"]
     batch_cut = None
@@ -2626,7 +2772,7 @@ def phase_lm_family(dev, phase: str) -> dict:
     out = {"phase": phase, "arch": cfg.name, "config": "full (published)",
            "family": cfg.family, "dtype": cfg.dtype, "param_dtype": "float32",
            "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "serve": serve,
+           "serve": serve, "card_vs_cpu": card_vs_cpu,
            "train": {**train, "batch_cut": batch_cut, "remat": cfg.remat,
                      "remat_groups": _remat_groups(cfg, cfg.n_layers),
                      "step_ms": 1e3 * secure_s, "plain_step_ms": 1e3 * plain_s,
@@ -2696,7 +2842,12 @@ def phase_paper(dev):
 # and qwen2-moe-a2.7b (60 routed experts top-4 padded to 64 over 8 virtual
 # shards, 4 shared experts as one of hidden 5,632, a secure exchange) at
 # their published configs, bf16, seeded weights; served only: neither
-# model's float32 Adam state fits one card
+# model's float32 Adam state fits one card. lm_mqa, lm_vlm: granite-20b
+# (multi-query attention, one KV head; 55.7 GB of bf16 weights) and
+# chameleon-34b (the vlm family's qk_norm; 67.5 GB): their float32 weights
+# do not fit one card, so their float32 consistency runs at the published
+# widths with the depth cut to `consist_layers`, and their batch is reckoned
+# from bytes before any prefill (`serve_batch`)
 PUBLISHED_PHASES = {
     "lm_dense": {"arch": "glm4-9b", "shards": 1, "secure": False, "batch": 8,
                  "prompt": 4096, "decode": 64,
@@ -2710,7 +2861,67 @@ PUBLISHED_PHASES = {
                                     "n_experts": 60, "n_experts_per_tok": 4,
                                     "n_shared_experts": 4, "shared_d_ff": 5632,
                                     "capacity_factor": 1.25, "vocab_size": 151936}},
+    "lm_mqa": {"arch": "granite-20b", "shards": 1, "secure": False, "batch": 8,
+               "prompt": 4096, "decode": 64, "consist_layers": 4,
+               "published": {"family": "dense", "n_layers": 52, "d_model": 6144,
+                             "n_heads": 48, "n_kv_heads": 1, "d_ff": 24576,
+                             "vocab_size": 49152}},
+    "lm_vlm": {"arch": "chameleon-34b", "shards": 1, "secure": False, "batch": 8,
+               "prompt": 4096, "decode": 64, "consist_layers": 4,
+               "published": {"family": "vlm", "n_layers": 48, "d_model": 8192,
+                             "n_heads": 64, "n_kv_heads": 8, "d_ff": 22016,
+                             "vocab_size": 65536, "qk_norm": True}},
 }
+ENTRY_ALLOCATED_MAX = 1e9  # bytes a big model's phase may find allocated at its entry
+SERVE_MARGIN = 4e9  # bytes of the card kept free past a reckoned batch
+
+
+def serve_batch(cfg, weight_bytes: int, prompt: int, smax: int, free: float,
+                start: int = 8) -> tuple:
+    """(batch, the reckoning): halved from `start` until the weights and,
+    per sequence, the KV cache, the prefill's float32 score chunk three
+    times over (its bf16 product, its float32 copy and the softmax's output
+    and bf16 cast), the activations of one layer (residual, norms and
+    projections at six widths of d_model, the gated MLP's three of d_ff, in
+    bf16) and two float32 logit rows fit `free` less SERVE_MARGIN."""
+    kv = 2 * cfg.n_layers * smax * cfg.n_kv_heads * cfg.head_dim * 2
+    chunk = min(cfg.attn_chunk or prompt, prompt)
+    scores = 3 * cfg.n_heads * chunk * prompt * 4
+    acts = prompt * (6 * cfg.d_model + 3 * cfg.d_ff) * 2
+    per_seq = kv + scores + acts + 2 * cfg.padded_vocab * 4
+    budget = free - SERVE_MARGIN
+    b = start
+    while b > 1 and weight_bytes + b * per_seq > budget:
+        b //= 2
+    need = weight_bytes + b * per_seq
+    check(need <= budget, f"{cfg.name}: one sequence does not fit: {need:.4g} bytes reckoned, "
+          f"{budget:.4g} free")
+    return b, {"weight_bytes": weight_bytes, "kv_bytes_per_sequence": kv,
+               "score_bytes_per_sequence": scores, "activation_bytes_per_sequence": acts,
+               "free_bytes": free, "margin_bytes": SERVE_MARGIN, "reckoned_bytes": need,
+               "batch": b}
+
+
+def release_card() -> dict:
+    """Before a big model: drop the job service's process-wide runner cache
+    (its graph captures) if one is held, collect, return the cached blocks;
+    the bytes still allocated (asserted under ENTRY_ALLOCATED_MAX) and the
+    card's free bytes."""
+    from repro_torch.serve import service
+
+    cache = service._default_cache
+    held = cache is not None
+    if held:
+        cache.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    check(allocated < ENTRY_ALLOCATED_MAX,
+          f"{allocated} bytes still allocated at a big model's entry")
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated_bytes": allocated, "free_bytes": free, "total_bytes": total,
+            "runner_cache_released": held}
 
 
 @contextlib.contextmanager
@@ -2742,9 +2953,13 @@ def _routing_recorded(e_pad: int, dev):
 
 
 def phase_lm_published(dev, phase: str) -> dict:
-    """glm4-9b (lm_dense) or qwen2-moe-a2.7b (lm_moe_shared) at its published
-    config (PUBLISHED_PHASES, asserted field by field), bf16 compute, weights
-    from a seeded generator. One sequence in float32: the 16th decode step
+    """glm4-9b (lm_dense), qwen2-moe-a2.7b (lm_moe_shared), granite-20b
+    (lm_mqa) or chameleon-34b (lm_vlm) at its published config
+    (PUBLISHED_PHASES, asserted field by field), bf16 compute, weights from a
+    seeded generator. A big model (`consist_layers` in its spec) starts from
+    a released card (`release_card`), holds its float32 consistency that
+    many layers deep and reckons its batch from bytes before any prefill
+    (`serve_batch`). One sequence in float32: the 16th decode step
     after a prefill of 4,080 tokens == a prefill of the 4,096 within
     FAMILY_CONSIST_TOL of the largest logit (qwen2-moe with a capacity that
     drops no token: a prefill at the published 1.25 drops tokens that decode
@@ -2782,17 +2997,20 @@ def phase_lm_published(dev, phase: str) -> dict:
     mesh = VirtualMesh(shards, dev)
     sec = _secure_cfg() if spec["secure"] else None
     e_pad = padded_experts(cfg, shards) if moe else 0
+    big = "consist_layers" in spec  # weights too large for float32, or for the old batch rule
+    entry = release_card() if big else None
     ck.launches = kk.launches = 0  # the path
 
-    # 1. one sequence, decode after prefill == prefill, in float32 first
-    f32 = replace(cfg, dtype="float32")
+    # 1. one sequence, decode after prefill == prefill, in float32 first (a
+    # big model's at the published widths, `consist_layers` deep)
+    f32 = replace(cfg, dtype="float32", n_layers=spec.get("consist_layers", cfg.n_layers))
     m32 = init_params(f32, torch.Generator(device=dev).manual_seed(FAMILY_SEED), shards, dev)
     consist = {}
     if moe:
         consist["float32_published_capacity"] = family_consistency(dev, f32, spec, m32, mesh)
         f32 = replace(f32, capacity_factor=e_pad / cfg.n_experts_per_tok)
     consist["float32"] = family_consistency(dev, f32, spec, m32, mesh)
-    consist["float32"].update(tolerance=FAMILY_CONSIST_TOL,
+    consist["float32"].update(tolerance=FAMILY_CONSIST_TOL, n_layers=f32.n_layers,
                               capacity_factor=f32.capacity_factor if moe else None)
     check(consist["float32"]["rel_diff"] <= FAMILY_CONSIST_TOL,
           f"{cfg.name}: float32 decode after prefill != prefill ({consist['float32']})")
@@ -2807,6 +3025,11 @@ def phase_lm_published(dev, phase: str) -> dict:
     consist["bfloat16"] = family_consistency(dev, cfg, spec, model, mesh)
     batch, batch_cut, tp, n_dec = spec["batch"], None, spec["prompt"], spec["decode"]
     smax = tp + n_dec + 2
+    reckoning = None
+    if big:  # the batch from bytes, before any prefill
+        torch.cuda.empty_cache()
+        batch, reckoning = serve_batch(cfg, param_bytes, tp, smax,
+                                       torch.cuda.mem_get_info()[0] + param_bytes, batch)
     g = torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1)
 
     def setup(b):
@@ -2824,7 +3047,7 @@ def phase_lm_published(dev, phase: str) -> dict:
 
     prompts, cache = setup(batch)
     lg_first, first_s, launches, recs, routed = first_prefill()
-    if torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
+    if not big and torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
         batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
         batch = 4
         del cache, prompts, lg_first
@@ -2892,7 +3115,14 @@ def phase_lm_published(dev, phase: str) -> dict:
            "param_counts": {"total": total, "active": active},
            "param_bytes": param_bytes, "kv_cache_bytes": kv_bytes, "init_s": init_s,
            "consistency": consist, "batch": batch, "prompt_tokens": tp, "decode_steps": n_dec,
-           "reduced": {"batch_cut": batch_cut},
+           "reduced": {"batch_cut": batch_cut, **({
+               "batch": [spec["batch"], batch, "reckoned from bytes before any prefill: "
+                         "the weights, and per sequence the KV cache, the float32 score "
+                         "chunk and the activations (`serve_batch`)"],
+               "float32_consistency_layers": [cfg.n_layers, f32.n_layers, "float32 weights "
+                                              "of the full depth do not fit one card"]}
+               if big else {})},
+           "entry": entry, "batch_reckoning": reckoning,
            "first_prefill_s": first_s, "prefill_s_runs": runs, "prefill_ms": 1e3 * prefill_s,
            "prompt_tokens_per_s": batch * tp / prefill_s,
            "profiled_prefill_ms": pre_ms, "prefill_device_busy_ms": pre_busy,
@@ -2929,6 +3159,155 @@ def phase_lm_published(dev, phase: str) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     emit(res)
     return res
+
+
+# hillclimb_lm: cells A, B and C of `repro_torch.launch.hillclimb`, measured
+# on the card; their abstract counts at the same shapes come from one
+# process started with the script, which counts them on `meta` (~0.5 ms an
+# operation on the host: minutes in all) one host thread at low priority
+HILLCLIMB_PLAN_WAIT_S = 300  # at most, past the card's own measurement
+HILLCLIMB_PLAN_ORDER = "BCA"  # cheapest first; A's batch cuts come last
+ABSTRACT_KEYS = ("flops", "bytes_accessed", "device_ops", "kernel_calls", "fits_one_card")
+
+
+def start_hillclimb_plan(tmpdir: str) -> tuple:
+    """(process, report path, log): `hillclimb.run_lm_cell(cell,
+    plan=True)` for B, C and A in turn, each row written as it is counted,
+    with no card visible."""
+    out = os.path.join(tmpdir, "plan.json")
+    log = open(os.path.join(tmpdir, "plan.log"), "w")
+    code = ("import os, torch; os.nice(10); torch.set_num_threads(1)\n"
+            "from repro_torch.launch import hillclimb as h\n"
+            f"r = {{}}\nfor c in {HILLCLIMB_PLAN_ORDER!r}:\n"
+            f"    h.run_lm_cell(c, plan=True, results=r, path={out!r})\n")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def stop_process(plan: tuple) -> None:
+    proc, _, log = plan
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    log.close()
+
+
+def _plan_rows(plan: tuple, keys: set, deadline: float) -> dict:
+    """The planned abstract rows once `keys` are all in the report (the
+    process is then stopped: it goes on to batches the card did not cut
+    to) or the process has ended; past `deadline` what is there."""
+    proc, out, log = plan
+    rows = {}
+    while True:
+        done = proc.poll() is not None
+        try:
+            with open(out) as f:
+                rows = json.load(f)
+        except (OSError, ValueError):  # not written yet, or mid-write
+            pass
+        if done or keys <= set(rows) or time.perf_counter() > deadline:
+            break
+        time.sleep(1.0)
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    else:
+        log.flush()
+        if proc.returncode != 0:
+            with open(log.name) as f:
+                check(False, f"the hillclimb plan failed (rc {proc.returncode}): "
+                      f"{f.read()[-1500:]}")
+    return rows
+
+
+def phase_hillclimb_lm(dev, plan: tuple) -> dict:
+    """Hillclimb cells A, B and C on the card (`hillclimb.measure_lm_cell`:
+    one warm-up, the median of 3 steps, host clock to a synchronise), each
+    variant beside its abstract counts at the measured shape (from the
+    plan process, `start_hillclimb_plan`). A: rwkv6-1.6b training at 4 x
+    4,096, the batch halved until every variant's step fits (reckoned from
+    one at batch 1), the scan and the blocked WKV beside it at 4 x 64, plain
+    batches, 0 ChaCha launches; B: qwen2-moe-a2.7b decode at a
+    32,768-token context, v0-v2 on float32 weights and v3 on bf16 (half
+    their bytes), 0 launches; C: granite-moe-3b-a800m training at 4 x 1,024
+    with secure ingest: 1 + 8 launches a layer under save_shuffle (v0 too:
+    it inherits save_shuffle from the config), each equal to its abstract
+    count plus the ingest; more under the full MoE remat (x0: the backward
+    replays the forward's exchange), equal to its abstract count too; 1 for
+    the plain exchange (v3); v4 runs v1's program, and their difference is
+    the noise reading. Every variant's step ran (no NO_FIT row), every loss
+    and logit finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.launch import hillclimb as hc
+
+    t_phase = time.perf_counter()
+    entry = release_card()
+    ck.launches = kk.launches = 0  # the path
+    cells = {}
+    for cell in hc.CELLS:
+        before = ck.launches
+        rows, secs = timed(lambda cell=cell: hc.measure_lm_cell(cell, dev))
+        cells[cell] = {"arch": hc.CELLS[cell]["arch"], "phase_s": secs,
+                       "chacha_launches": ck.launches - before,
+                       "variants": {f"{v}|{shape}": r for (v, shape), r in rows.items()}}
+    t_wait = time.perf_counter()
+    planned = _plan_rows(plan, {hc.lm_key(cell, *k.split("|")[::-1]) for cell, c in
+                                cells.items() for k in c["variants"]},
+                         t_wait + HILLCLIMB_PLAN_WAIT_S)
+    plan_wait = time.perf_counter() - t_wait
+    for cell, c in cells.items():
+        for key, r in c["variants"].items():
+            check(r["status"] == "OK", f"hillclimb {cell} {key}: {r['status']} {r.get('reckoning')}")
+            v, shape = key.split("|")
+            a = planned.get(hc.lm_key(cell, shape, v), {}).get("abstract")
+            check(a is not None, f"hillclimb {cell} {key}: no abstract count at its shape")
+            r["abstract"] = {
+                **{k: a[k] for k in ABSTRACT_KEYS}, "wire_bytes": a["collectives"]["wire_bytes"],
+                "params_bytes": a["memory"]["params_bytes"],
+                "peak_per_device": a["memory"]["peak_per_device"],
+                "roofline": {k: a["roofline"][k] for k in ("compute_s", "memory_s",
+                                                          "collective_s", "dominant")}}
+            finite = r.get("losses_finite", r.get("logits_finite"))
+            check(finite, f"hillclimb {cell} {key}: non-finite loss or logits")
+
+    for cell in "AB":
+        n = {k: r["chacha_launches_per_step"] for k, r in cells[cell]["variants"].items()}
+        check(not any(n.values()), f"hillclimb {cell}: ChaCha launched {n}")
+    b = {k.split("|")[0]: r for k, r in cells["B"]["variants"].items()}
+    check(2 * b["v3_bf16_serve_params"]["param_bytes"] == b["v0_tp_baseline"]["param_bytes"],
+          "hillclimb B: bf16 serving weights are not half the float32 ones")
+    c = {k.split("|")[0]: r for k, r in cells["C"]["variants"].items()}
+    layers = get_config(hc.CELLS["C"]["arch"]).n_layers
+    want = {"v0_secure_shuffle_paper_faithful": 1 + 8 * layers,
+            "v1_secure_save_shuffle_remat": 1 + 8 * layers,
+            "v2_secure_saveshuf_bf16_scores": 1 + 8 * layers, "v3_plain_saveshuf_bf16": 1,
+            "v4_secure_saveshuf_no_expert_fsdp": 1 + 8 * layers}
+    got = {v: r["chacha_launches_by_step"] for v, r in c.items()}
+    x0 = set(got["x0_secure_full_moe_remat"])
+    check(all(set(got[v]) == {n} for v, n in want.items()) and len(x0) == 1
+          and min(x0) > want["v1_secure_save_shuffle_remat"],
+          f"hillclimb C: ChaCha launches per step {got}, not {want} (x0 above v1's)")
+    want["x0_secure_full_moe_remat"] = min(x0)
+    # the abstract run has no ingest: one launch fewer
+    abstract_plus_ingest = {v: r["abstract"]["kernel_calls"].get("chacha20_xor_packed", 0) + 1
+                            for v, r in c.items()}
+    check(abstract_plus_ingest == want,
+          f"hillclimb C: abstract ChaCha calls + the ingest {abstract_plus_ingest} != {want}")
+    v1, v4 = c["v1_secure_save_shuffle_remat"], c["v4_secure_saveshuf_no_expert_fsdp"]
+    launches = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
+    check(kk.launches == 0, "hillclimb_lm: the k-means kernel ran")
+    out = {"phase": "hillclimb_lm", "entry": entry, "cells": cells,
+           "chacha_launches_per_step_C": want,
+           "chacha_abstract_plus_ingest_C": abstract_plus_ingest, "plan_wait_s": plan_wait,
+           "noise_C_v4_minus_v1_ms": v4["step_ms"] - v1["step_ms"],
+           "noise_C_rel": (v4["step_ms"] - v1["step_ms"]) / v1["step_ms"],
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
 
 
 # serve: chunk sizes fixed per kind, so every job of a kind replays one runner
@@ -3353,6 +3732,16 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's sources are missing ({SRC}/repro_torch)", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    plan = start_hillclimb_plan(tmpdir)
+    try:
+        return _main(plan)
+    finally:
+        stop_process(plan)
+        shutil.rmtree(tmpdir, ignore_errors=True)
+
+
+def _main(plan: tuple) -> int:
     from repro_torch.core.kmeans import generate_points
     from repro_torch.kernels import _build
 
@@ -3410,6 +3799,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         pub[phase] = phase_lm_published(dev, phase)
         freed[phase] = collect_garbage()
+    torch.cuda.empty_cache()
+    hill = phase_hillclimb_lm(dev, plan)
+    freed["hillclimb_lm"] = collect_garbage()
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -3422,8 +3814,9 @@ def main(argv=None) -> int:
                "lm_train": tr["launches"]["chacha20"],
                **{phase: res["launches"]["chacha20"] for phase, res in fam.items()},
                "paper": paper["launches"]["chacha20"],
-               **{phase: res["launches"]["chacha20"] for phase, res in pub.items()}}
-    # glm4-9b's dense layers have no expert exchange: its path runs no ChaCha
+               **{phase: res["launches"]["chacha20"] for phase, res in pub.items()},
+               "hillclimb_lm": hill["launches"]["chacha20"]}
+    # the dense models' layers have no expert exchange: their paths run no ChaCha
     no_chacha = [p for p, spec in PUBLISHED_PHASES.items() if not spec["secure"]]
     check(all((v == 0) == (p in no_chacha) for p, v in by_path.items()),
           f"a path ran no ChaCha launch, or a dense one ran some: {by_path}")
@@ -3458,6 +3851,9 @@ def main(argv=None) -> int:
                                                            "bound_by")}
                                  for name, c in res["train"]["chacha"].items()}
                          for phase, res in fam.items()},
+         "launches_by_cell_hillclimb_lm": {c: r["chacha_launches"]
+                                           for c, r in hill["cells"].items()},
+         "launches_per_step_hillclimb_C": hill["chacha_launches_per_step_C"],
          "ms_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["kernel_ms"],
          "bound_ms_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["bound_ms"],
          "lanes_lm_moe_shared_wire": pub["lm_moe_shared"]["chacha"]["lanes"],
@@ -3485,7 +3881,8 @@ def main(argv=None) -> int:
                               "calibrate": cal["launches"]["kmeans_assign"],
                               "paper": paper["launches"]["kmeans_assign"],
                               **{phase: res["launches"]["kmeans_assign"]
-                                 for phase, res in {**fam, **pub}.items()}},
+                                 for phase, res in {**fam, **pub}.items()},
+                              "hillclimb_lm": hill["launches"]["kmeans_assign"]},
          "launches_serve_by_profiler": srv["launches_by_profiler"]["kmeans_assign"],
          "max_abs_err": km["max_abs_err"], "ms": km["ms"], "plain_ms": km["plain_ms"],
          "bound_ms": km["bound_ms"], "bound_by": km["bound_by"],

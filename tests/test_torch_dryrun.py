@@ -12,7 +12,9 @@ and a CPU tensor take a few framework operations differently: a scalar
 lifted to a tensor, `one_hot`'s range check). At the published configs,
 `fits_one_card` agrees with the bf16 weight sizes of ROADMAP item 12:
 deepseek-67b (133 GB) and mistral-large-123b (244 GB) never fit; a cell
-that fits has weights that fit.
+that fits has weights that fit. A training step counted one microbatch at a
+time (`one_microbatch=True`: the first microbatch run, its counts added
+again for each later one) counts exactly what the whole step counts.
 """
 
 import dataclasses
@@ -104,3 +106,16 @@ def test_fits_one_card_agrees_with_the_bf16_weight_sizes(shape):
     # experts padded to 64 over 8 shards add theirs)
     glm = got["glm4-9b"]["params_bytes"]
     assert glm == pytest.approx(2 * param_counts(get_config("glm4-9b"))[0], rel=1e-3)
+
+
+@pytest.mark.parametrize("arch,over", [("rwkv6-1.6b", {"wkv_impl": "scan"}),
+                                       ("granite-moe-3b-a800m", {})])
+def test_one_microbatch_counts_equal_the_whole_step(arch, over):
+    over, shape = {**_reduced(arch), **over}, ShapeConfig("train_small", "train", 16, 4)
+    whole = dryrun.run_cell(arch, "train", over, shape=shape, accum=4)
+    once = dryrun.run_cell(arch, "train", over, shape=shape, accum=4, one_microbatch=True)
+    assert whole["accum"] == once["accum"] == 4
+    for k in ("flops", "bytes_accessed", "device_ops", "kernel_calls", "collectives", "memory",
+              "roofline"):
+        assert once[k] == whole[k], k
+    assert once["t_compile_s"] < whole["t_compile_s"]

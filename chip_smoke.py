@@ -3330,6 +3330,7 @@ def phase_serve(dev, tokens_np, tokens, pts_np):
     from repro_torch.kernels.chacha20 import kernel as ck
     from repro_torch.kernels.kmeans import kernel as kk
     from repro_torch.serve import RunnerCache, SecureJobService
+    from repro_torch.tools.opcount import spans
 
     points = torch.from_numpy(pts_np).to(dev)
     values_np = np.random.default_rng(SORT_SEED).lognormal(0.0, 1.0, SORT_N).astype(np.float32)
@@ -3354,19 +3355,27 @@ def phase_serve(dev, tokens_np, tokens, pts_np):
            ("grep", (tokens, patterns), {"n_rounds": GREP_ROUNDS, "min_chunk": SERVE_GREP_CHUNK,
                                          "max_chunk": SERVE_GREP_CHUNK})]
 
+    chunk_s = {}  # id(handle) -> host seconds of each of its chunks
+
     def serve(jobs, max_concurrent=3):
         """Submit `jobs` to a fresh service on the shared cache; (handles, results)."""
-        with SecureJobService(mesh, secure=cfg, cache=cache, max_concurrent=max_concurrent) as svc:
+        with spans.recording() as recorded, \
+                SecureJobService(mesh, secure=cfg, cache=cache,
+                                 max_concurrent=max_concurrent) as svc:
             hs = [getattr(svc, "submit_" + kind)(*a, **kw) for kind, a, kw in jobs]
-            return hs, [h.result(timeout=600) for h in hs]
+            results = [h.result(timeout=600) for h in hs]
+        for h in hs:
+            chunk_s[id(h)] = [t1 - t0 for name, t0, t1, attrs in recorded
+                              if name == "service.chunk" and attrs["job"] == h.job_id]
+        return hs, results
 
     def job(h, r):
         rounds = r.get("n_iter", r.get("rounds"))
         run_s = h.finished_at - h.started_at
         return {"kind": h.kind, "n": h.n, "bucket": h.bucket, "round_base": h.round_base,
                 "misses": h.runner_misses, "chunks": h.chunks, "rounds": rounds,
-                "latency_s": h.latency_s, "queue_s": h.queue_s, "chunk_s": h.chunk_s,
-                "after_chunks_s": run_s - sum(h.chunk_s),  # the result's copy back
+                "latency_s": h.latency_s, "queue_s": h.queue_s, "chunk_s": chunk_s[id(h)],
+                "after_chunks_s": run_s - sum(chunk_s[id(h)]),  # the result's copy back
                 "ms_per_round": 1e3 * run_s / rounds}
 
     (hc,), (rc,) = serve([km(SERVE_COLD_N)])

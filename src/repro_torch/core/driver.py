@@ -107,7 +107,7 @@ import threading
 import warnings
 import weakref
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
@@ -117,7 +117,9 @@ from repro_torch.core.engine import default_hash, shuffle_round
 from repro_torch.core.shuffle import resolve_coalesce, wire_accounting
 from repro_torch.crypto.chacha import MASK32, to_word_bits
 from repro_torch.device import pinned_constants
+from repro_torch.kernels import kernel_calls
 from repro_torch.perf.model import recommendation
+from repro_torch.tools.opcount import spans
 from repro_torch.tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 class P(tuple):
@@ -609,6 +611,7 @@ class _Captured:
     records: list  # the shuffle's wire records made at capture
     pool_bytes: int  # bytes its capture added to the (shared) pool
     trace_info: dict  # the resolved capacity at capture
+    kernels: dict = field(default_factory=dict)  # the kernel calls made at capture
 
 
 class _GraphRunner:
@@ -636,7 +639,14 @@ class _GraphRunner:
     and its inputs when they are not the last call's, into the static
     buffers, replays, and clones fresh tensors out: another job's chunk, on
     this thread or another, may replay this graph next. The shuffle's wire
-    record made at capture is re-emitted for every executed round.
+    record and the kernel calls made at capture are re-emitted for every
+    executed round (the capture itself counts none).
+
+    Spans (`repro_torch.tools.opcount.spans`): `driver.capture` (a miss:
+    the warm-up and the capture), `driver.load` (the copies into the static
+    buffers), `driver.replay` (a round's id written and its graph
+    launched), `driver.halt_read` (the sync on the halt flag) and
+    `driver.gather` (the clones out at the chunk's end).
     """
 
     def __init__(self, spec: IterativeSpec, mesh, secure, n_rounds: int, coalesce=None,
@@ -704,7 +714,7 @@ class _GraphRunner:
         before = 0 if st.pool is None else _pool_bytes(st.pool)
         graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK, wire_accounting.isolated() as records, \
-                pinned_constants(st.constants), \
+                kernel_calls.isolated() as kernels, pinned_constants(st.constants), \
                 torch.cuda.graph(graph, pool=st.pool, capture_error_mode="thread_local"):
             state, aux, dropped, halt = self._body(st)
             row = (st.r - st.base).reshape(1)
@@ -717,7 +727,7 @@ class _GraphRunner:
                 st.halt.copy_(halt)
         st.pool = graph.pool()
         return _Captured(graph, aux_rows, drop_rows, list(records),
-                         _pool_bytes(st.pool) - before, dict(self.trace_info))
+                         _pool_bytes(st.pool) - before, dict(self.trace_info), dict(kernels))
 
     def __call__(self, inputs, state, round_offset: int = 0):
         spec, mesh = self.spec, self.mesh
@@ -730,28 +740,36 @@ class _GraphRunner:
         st = budget.use(store, key)
         try:
             with st.lock:
-                if not st.ready:
-                    self._warm(st, src, inputs, carried, layout, int(round_offset))
                 cap = st.captured.get(self.n_rounds)
-                if cap is None:
-                    cap = st.captured[self.n_rounds] = self._capture(st)
+                if cap is None:  # new statics have no captures
+                    with spans.span("driver.capture"):
+                        if not st.ready:
+                            self._warm(st, src, inputs, carried, layout, int(round_offset))
+                        cap = st.captured[self.n_rounds] = self._capture(st)
                 self.trace_info.update(cap.trace_info)
-                st.load(src, inputs, carried)
-                st.base.fill_(int(round_offset))
+                with spans.span("driver.load"):
+                    st.load(src, inputs, carried)
+                    st.base.fill_(int(round_offset))
                 n_exec, halted = 0, False
                 for i in range(self.n_rounds):
-                    st.r.fill_(int(round_offset) + i)
-                    cap.graph.replay()
+                    with spans.span("driver.replay"):
+                        st.r.fill_(int(round_offset) + i)
+                        cap.graph.replay()
                     n_exec += 1
-                    if spec.halt_fn is not None and bool(st.halt):
-                        halted = True
-                        break
-                out = layout.gather(tree_map(torch.clone, st.state), mesh)
-                aux = tree_map(lambda a: _zero_past(a, n_exec), cap.aux)
-                dropped = _zero_past(cap.dropped, n_exec)
+                    if spec.halt_fn is not None:
+                        with spans.span("driver.halt_read"):
+                            halted = bool(st.halt)
+                        if halted:
+                            break
+                with spans.span("driver.gather"):
+                    out = layout.gather(tree_map(torch.clone, st.state), mesh)
+                    aux = tree_map(lambda a: _zero_past(a, n_exec), cap.aux)
+                    dropped = _zero_past(cap.dropped, n_exec)
         finally:
             budget.release(store, key, st)
         wire_accounting.emit(cap.records * n_exec)
+        for name, calls in cap.kernels.items():
+            kernel_calls.add(name, calls * n_exec)
         return out, aux, dropped, n_exec, halted
 
 
@@ -886,7 +904,8 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     None, every chunk runs the eager loop: a graph replayed once would pay
     its capture and save nothing. `job_tag` wraps each chunk in
     `wire_accounting.tagged`, so interleaved jobs sharing a
-    `record_wire_bytes` sink stay separable.
+    `record_wire_bytes` sink stay separable. The copy of the per-round
+    values to the host at the job's end is the span `driver.collect`.
     """
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
@@ -934,8 +953,9 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
         yield {"chunk_rounds": n, "rounds_executed": executed,
                "n_dispatches": n_dispatches, "halted": halted}
 
-    aux = tree_map(lambda *xs: torch.cat(xs).cpu().numpy(), *auxes)
-    dropped = torch.cat(drops).cpu().numpy()
+    with spans.span("driver.collect"):
+        aux = tree_map(lambda *xs: torch.cat(xs).cpu().numpy(), *auxes)
+        dropped = torch.cat(drops).cpu().numpy()
     if warn_on_overflow:
         _warn_overflow(dropped, round_offset, info, stacklevel=4)
     return RunUntilResult(state=state, aux=aux, dropped=dropped, rounds_executed=executed,

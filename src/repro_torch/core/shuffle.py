@@ -63,6 +63,7 @@ from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_r
 from repro_torch.kernels.chacha20.table import BlockTable, block_table
 from repro_torch.mesh import VirtualMesh
 from repro_torch.perf.model import recommendation
+from repro_torch.tools.opcount import spans
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -506,15 +507,17 @@ def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
 
     When grad is enabled and a leaf requires it, the exchange runs as the op
     `torch.ops.repro_torch.keyed_exchange` (same bits), whose backward is the
-    same exchange of the cotangents (`_exchange_backward`).
+    same exchange of the cotangents (`_exchange_backward`). The forward call
+    is the span `shuffle.exchange` (`repro_torch.tools.opcount.spans`).
     """
-    leaves, treedef = tree_flatten(tree)
-    if torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves):
-        if isinstance(round_index, torch.Tensor):
-            raise ValueError("a differentiable exchange takes a host round index")
-        args = _exchange_args(mesh, secure, round_index, coalesce)
-        return tree_unflatten(treedef, keyed_exchange(leaves, *args))
-    return _exchange(tree, mesh, secure, round_index, coalesce)
+    with spans.span("shuffle.exchange"):
+        leaves, treedef = tree_flatten(tree)
+        if torch.is_grad_enabled() and any(leaf.requires_grad for leaf in leaves):
+            if isinstance(round_index, torch.Tensor):
+                raise ValueError("a differentiable exchange takes a host round index")
+            args = _exchange_args(mesh, secure, round_index, coalesce)
+            return tree_unflatten(treedef, keyed_exchange(leaves, *args))
+        return _exchange(tree, mesh, secure, round_index, coalesce)
 
 
 # --- the differentiable exchange ----------------------------------------------------

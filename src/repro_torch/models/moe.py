@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
 from repro_torch.models.layers import Params, act_fn
+from repro_torch.tools.opcount import spans
 
 # what `moe_remat="save_shuffle"` keeps for the backward: the reference's
 # checkpoint names "moe_recv" and "moe_back", the outputs of both legs
@@ -222,32 +223,36 @@ def _moe_decode_body(cfg, params, x, mesh):
 def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
     """Sequence split over the R shards: x (B, T, d) -> (R, B·T/R, d), each
     shard's tokens b-major as the reference's per-shard `x.reshape(-1, d)`
-    (which tokens a full expert drops depends on that order)."""
+    (which tokens a full expert drops depends on that order). Spans:
+    `moe.route` (the split, routing and packing), `moe.experts` (the
+    expert FFN and its transposes); each leg is `shuffle.exchange`."""
     b, t, d = x.shape
     r = mesh.n_shards
-    x2 = x.reshape(b, r, t // r, d).transpose(0, 1).reshape(r, -1, d)
-    n = x2.shape[1]
     wi, wg, wo = _expert_shards(params, r)
     e_pad = params.wi.shape[0]
     e_loc = e_pad // r
-    gates, eidx, aux = _route(cfg, params.router, x2, e_pad)  # (R, n, k)
     k = cfg.n_experts_per_tok
-    cap = _capacity(cfg, n, e_pad)
+    with spans.span("moe.route"):
+        x2 = x.reshape(b, r, t // r, d).transpose(0, 1).reshape(r, -1, d)
+        n = x2.shape[1]
+        gates, eidx, aux = _route(cfg, params.router, x2, e_pad)  # (R, n, k)
+        cap = _capacity(cfg, n, e_pad)
 
-    # --- map: emit (expert_key, token_vector); shuffle: hash(key) = key ------
-    keys = _entry_keys(n, k, x.device)
-    _, packed, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1),
-                                          {"x": _entry_values(x2, k)}, e_pad, cap,
-                                          return_positions=True)
-    send = packed["x"].reshape(r, r, e_loc * cap, d)  # dest-shard-major
+        # --- map: emit (expert_key, token_vector); shuffle: hash(key) = key --
+        keys = _entry_keys(n, k, x.device)
+        _, packed, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1),
+                                              {"x": _entry_values(x2, k)}, e_pad, cap,
+                                              return_positions=True)
+        send = packed["x"].reshape(r, r, e_loc * cap, d)  # dest-shard-major
     recv = keyed_all_to_all({"x": send}, mesh, secure)["x"]  # (R, src, E_loc·cap, d)
 
     # --- reduce: local experts over tokens from every source ------------------
-    xe = recv.reshape(r, r, e_loc, cap, d).transpose(1, 2).reshape(r, e_loc, r * cap, d)
-    ye = _expert_ffn(cfg, wi, wg, wo, xe)
+    with spans.span("moe.experts"):
+        xe = recv.reshape(r, r, e_loc, cap, d).transpose(1, 2).reshape(r, e_loc, r * cap, d)
+        ye = _expert_ffn(cfg, wi, wg, wo, xe)
+        back = ye.reshape(r, e_loc, r, cap, d).transpose(1, 2).reshape(r, r, e_loc * cap, d)
 
     # --- return shuffle (the reducer->client leg) ------------------------------
-    back = ye.reshape(r, e_loc, r, cap, d).transpose(1, 2).reshape(r, r, e_loc * cap, d)
     sec_back = None
     if secure is not None:  # a fresh config, as the reference's: default impl and wire
         sec_back = SecureShuffleConfig(key_words=secure.key_words,

@@ -19,6 +19,14 @@ its experts through the mesh's shuffle, ChaCha20-encrypted in prefill when
 the shards takes the replicated dispatch, which has no exchange). The
 reference's `cache_specs` (a PartitionSpec tree) has no counterpart on one
 card.
+
+Instruments (`repro_torch.tools.opcount`): a prefill is the span
+`engine.prefill`, each self-attention in it `engine.attention` (a layer of
+the dense, MoE and VLM families tagged with its index, `layer`, which the
+MoE's `moe.route`, `shuffle.exchange` and `moe.experts` spans inherit);
+every MoE layer of a prefill or a decode step adds its dropped expert
+entries to the counter `moe.dropped_entries` and its routed ones (B·T·k) to
+`moe.routed_entries`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, compute_dtype, embed_apply, mlp_apply, unembed_apply
 from repro_torch.models.lm import check_family, encode_audio
+from repro_torch.tools.opcount import counters, spans
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None, dtype=None) -> dict:
@@ -78,11 +87,20 @@ def _store_kv(cache_k, cache_v, k, v):
 
 def _prefill_attn(cfg, p, x, positions, cache_k, cache_v):
     """Self-attention of a prefill, its K/V into the cache; returns x + attn."""
-    hn = apply_norm(cfg, p.ln1, x)
-    k, v = attn.project_kv(cfg, p.attn, hn, positions)
-    x = x + attn.self_attention(cfg, p.attn, hn, positions, kv=(k, v))
-    _store_kv(cache_k, cache_v, k, v)
-    return x
+    with spans.span("engine.attention"):
+        hn = apply_norm(cfg, p.ln1, x)
+        k, v = attn.project_kv(cfg, p.attn, hn, positions)
+        x = x + attn.self_attention(cfg, p.attn, hn, positions, kv=(k, v))
+        _store_kv(cache_k, cache_v, k, v)
+        return x
+
+
+def _moe_layer(cfg, p, hn, mesh, secure=None):
+    """A MoE layer's output; its dropped and routed entries are counted."""
+    y, _, dropped = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh, secure=secure)
+    counters.add("moe.dropped_entries", dropped)
+    counters.add("moe.routed_entries", hn.shape[0] * hn.shape[1] * cfg.n_experts_per_tok)
+    return y
 
 
 @torch.no_grad()
@@ -90,6 +108,11 @@ def prefill(cfg, model, tokens, cache, mesh=None, frames=None, secure_moe=None):
     """Fill `cache` with `tokens` (B, Tp) in place (audio: and `frames` (B,
     S_enc, d), the frontend embeddings); returns the last token's logits
     (B, V_pad) in the compute dtype."""
+    with spans.span("engine.prefill"):
+        return _prefill(cfg, model, tokens, cache, mesh, frames, secure_moe)
+
+
+def _prefill(cfg, model, tokens, cache, mesh, frames, secure_moe):
     check_family(cfg)
     b, t = tokens.shape
     x = embed_apply(cfg, model.embed, tokens)
@@ -127,13 +150,13 @@ def prefill(cfg, model, tokens, cache, mesh=None, frames=None, secure_moe=None):
             x = x + mlp_apply(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
     else:
         for i, p in enumerate(model.layers):
-            x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
-            hn = apply_norm(cfg, p.ln2, x)
-            if fam == "moe":
-                y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh, secure=secure_moe)
-                x = x + y
-            else:
-                x = x + mlp_apply(cfg, p.mlp, hn)
+            with spans.tagged(layer=i):
+                x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
+                hn = apply_norm(cfg, p.ln2, x)
+                if fam == "moe":
+                    x = x + _moe_layer(cfg, p, hn, mesh, secure_moe)
+                else:
+                    x = x + mlp_apply(cfg, p.mlp, hn)
     cache["pos"].fill_(t)
     x = apply_norm(cfg, model.final_norm, x[:, -1:])
     return unembed_apply(cfg, model.embed, x)[:, 0]
@@ -188,8 +211,7 @@ def decode_step(cfg, model, cache, tokens, mesh=None):
             x = _decode_attn(cfg, p, x, cache["k"][i], cache["v"][i], pos)
             hn = apply_norm(cfg, p.ln2, x)
             if fam == "moe":
-                y, _, _ = moe_mod.moe_apply(cfg, p.moe, hn, mesh=mesh)
-                x = x + y
+                x = x + _moe_layer(cfg, p, hn, mesh)
             else:
                 x = x + mlp_apply(cfg, p.mlp, hn)
     pos.add_(1)

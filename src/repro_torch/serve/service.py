@@ -71,6 +71,7 @@ from repro_torch.core.kmeans import make_kmeans_iterative_spec, paper_threshold
 from repro_torch.core.shuffle import SecureShuffleConfig, resolve_coalesce
 from repro_torch.core.sort import make_sample_sort_spec
 from repro_torch.perf.model import recommendation
+from repro_torch.tools.opcount import spans
 
 BUCKET_GROWTH_ENV = "REPRO_BUCKET_GROWTH"
 MAX_RUNNERS_ENV = "REPRO_SERVICE_MAX_RUNNERS"
@@ -319,8 +320,8 @@ class JobHandle:
     `result(timeout)` blocks for the job's output (a dict of numpy values;
     see the `submit_*` docstrings). Times are `time.perf_counter()` stamps:
     `latency_s` spans submit -> finish, `queue_s` the wait before admission;
-    `chunk_s` holds each chunk's host seconds (the first with the job's
-    set-up; the result's copy back comes after the last).
+    `chunks` counts the chunks dispatched (each one a `service.chunk` span,
+    `repro_torch.tools.opcount.spans`, while a sink is open).
     `runner_misses` counts the cache misses charged to THIS job: 0 means it
     ran on cached runners only (a warm job, which captures nothing).
     """
@@ -338,7 +339,6 @@ class JobHandle:
     finished_at: float | None = None
     runner_misses: int = 0
     chunks: int = 0
-    chunk_s: list = field(default_factory=list)  # host seconds of each chunk dispatch
 
     def result(self, timeout: float | None = None):
         return self.future.result(timeout)
@@ -431,6 +431,12 @@ class SecureJobService:
     concurrency, serial included. Services may share one `RunnerCache`: a
     graph runner's statics serve one thread at a time (`_Statics.lock`),
     and captures are taken one at a time.
+
+    Spans (`repro_torch.tools.opcount.spans`), each of one job but the
+    first carrying its `job_id` as `job`: `service.pass` (one pass over the
+    active jobs), `service.prepare` (a job's set-up: threshold, padding,
+    initial state), `service.chunk` (one chunk of one job) and
+    `service.finish` (the result's copy to the host and the future).
     """
 
     def __init__(self, mesh, *, secure: SecureShuffleConfig | None = None,
@@ -512,35 +518,37 @@ class SecureJobService:
                     queue = self._pending_high or self._pending
                     self._active.append(queue.popleft())
                 batch = list(self._active)
-            for job in batch:
-                try:
-                    if job.gen is None:
-                        job.handle.started_at = time.perf_counter()
-                        job.gen = job.make_gen(job.handle)
-                    t = time.perf_counter()
-                    next(job.gen)
-                    job.handle.chunk_s.append(time.perf_counter() - t)
-                    job.handle.chunks += 1
-                except StopIteration as stop:
-                    self._finish(job, stop.value)
-                except BaseException as exc:  # surfaces through the future
-                    self._finish(job, None, exc)
+            with spans.span("service.pass"):
+                for job in batch:
+                    try:
+                        if job.gen is None:
+                            job.handle.started_at = time.perf_counter()
+                            with spans.span("service.prepare", job=job.handle.job_id):
+                                job.gen = job.make_gen(job.handle)
+                        with spans.span("service.chunk", job=job.handle.job_id):
+                            next(job.gen)
+                        job.handle.chunks += 1
+                    except StopIteration as stop:
+                        self._finish(job, stop.value)
+                    except BaseException as exc:  # surfaces through the future
+                        self._finish(job, None, exc)
 
     def _finish(self, job: _Job, res, exc=None):
-        if exc is None:
-            try:
-                value = job.finalize(res)
-            except BaseException as finalize_exc:
-                exc = finalize_exc
-        job.handle.finished_at = time.perf_counter()
-        with self._cv:
-            self._active.remove(job)
-            self._jobs_completed += 1
-            self._cv.notify_all()
-        if exc is not None:
-            job.handle.future.set_exception(exc)
-        else:
-            job.handle.future.set_result(value)
+        with spans.span("service.finish", job=job.handle.job_id):
+            if exc is None:
+                try:
+                    value = job.finalize(res)
+                except BaseException as finalize_exc:
+                    exc = finalize_exc
+            job.handle.finished_at = time.perf_counter()
+            with self._cv:
+                self._active.remove(job)
+                self._jobs_completed += 1
+                self._cv.notify_all()
+            if exc is not None:
+                job.handle.future.set_exception(exc)
+            else:
+                job.handle.future.set_result(value)
 
     def _submit(self, kind, n, bucket, max_rounds, make_gen, finalize,
                 priority: int = 0) -> JobHandle:

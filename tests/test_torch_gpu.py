@@ -556,6 +556,40 @@ def test_graph_runner_equals_eager_chunk(cuda, workload):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("workload", ["kmeans", "grep_all"])
+def test_graph_runner_counts_kernel_calls_per_executed_round(cuda, workload):
+    """`kernel_calls` sees every replayed round: a cold call counts its eager
+    warm-up round and each executed round (the capture itself runs nothing
+    and counts none); a warm call counts each executed round, as many as the
+    profiler's ChaCha launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import VirtualMesh
+    from repro_torch.core import driver
+    from repro_torch.kernels import kernel_calls
+
+    mesh = VirtualMesh(8, cuda)
+    spec, inputs, init = _runner_case(workload, mesh)
+    runner = driver.make_iterative_runner(spec, mesh, _cfg(), 8)
+    per_round = {"chacha20_xor_packed": 2}
+    if workload == "kmeans":
+        per_round["kmeans_assign"] = 1
+    with kernel_calls.recording() as cold:
+        n_cold = runner(inputs, init, 0)[3]
+    assert cold == {k: v * (1 + n_cold) for k, v in per_round.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            kernel_calls.recording() as warm:
+        torch.cuda._sleep(1000)  # a first kernel the counts leave out
+        torch.cuda.synchronize()
+        n_warm = runner(inputs, init, 100)[3]
+        torch.cuda.synchronize()
+    assert warm == {k: v * n_warm for k, v in per_round.items()}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("chacha20" in n for n in names) == warm["chacha20_xor_packed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("workload", ["kmeans", "grep_all"])
 def test_warm_graph_chunk_syncs_once_per_executed_round(cuda, workload):
     """The one-round graph design: the host reads the halt flag after each
     replay (one synchronising call per executed round) and nothing else

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `src/repro_torch/csrc/` (nvcc, sm_90a),
-then runs twenty-four phases, each printing one JSON line, and a
-twenty-fifth line:
+then runs twenty-five phases, each printing one JSON line, and a
+twenty-sixth line:
 
   device         the card's name and power limit; ptxas entry, register,
                  shared-memory and spill lines of both sources, the
@@ -23,6 +23,19 @@ twenty-fifth line:
                  memory (`round_dev`) == the by-value round bit for bit at
                  rounds 0, 1, 2**31, 2**32-1 on both designs, and its time
                  (`kernel_ms_round_dev`)
+  attention      the prefill's fused causal attention kernel at granite-moe's
+                 per-layer shape (8 x 4,096 tokens, 24 heads on 8 KV heads,
+                 Dh 64) and qwen2-moe's (16 heads on 16, Dh 128): kernel ms
+                 (CUDA events over a graph of its calls) beside its bound
+                 (causal operations at 989 TFLOP/s), the plain path's ms
+                 (the model's query-chunked `attend`) and, as a yardstick
+                 only, scaled_dot_product_attention's (`library_ms`); its
+                 relative error and the plain path's against a float32
+                 softmax of the same inputs over the whole batch
+                 (asserted: the kernel's no larger), two runs equal bit for
+                 bit; the float32 specialisation at granite's shape, one
+                 prompt: ms, the plain path's, error against float64
+                 (asserted within 2**-16)
   crypt_call     the shuffle's crypt call on the main path's wire: warm call
                  time (host clock to a synchronise), device operations and
                  synchronising calls per crypt (asserted: 1 and 0, and the two
@@ -247,6 +260,8 @@ twenty-fifth line:
                  alive)
   kernels        per kernel: launches on the main path, time, bound, plain
                  and library times; each kernel's launches on each path
+                 (the attention kernel: every LM path's prefills, 0 on the
+                 others)
                  (ChaCha20: k-means, sort, grep, wordcount, enclave,
                  calibrate, paper, lm_serve, lm_train, lm_ssm, lm_hybrid,
                  lm_audio, lm_moe_shared, hillclimb_lm (by cell, and per
@@ -359,19 +374,31 @@ def phase_device(build):
     print(smi, flush=True)
     t0 = time.time()
     build.build("chacha20", "kmeans")
+    for dh in ATTN_HEAD_DIMS:
+        build.build("attention", defines={"HEAD_DIM": dh})
     sass = {n: sass_counts(build.library_path(n)) for n in ("chacha20", "kmeans")}
+    sass.update({f"attention_dh{dh}": sass_counts(build.library_path(
+        "attention", {"HEAD_DIM": dh})) for dh in ATTN_HEAD_DIMS})
     tensor_ops = {n: None if c is None else {f: v["tensor_core"] for f, v in c.items()}
                   for n, c in sass.items()}
     if tensor_ops["kmeans"] is not None:
         check(all(c > 0 for f, c in tensor_ops["kmeans"].items() if "kmeans_assign_kernel" in f),
               "the k-means assign kernel has no tensor-core instruction")
+    for dh in ATTN_HEAD_DIMS:
+        if tensor_ops[f"attention_dh{dh}"] is not None:
+            check(all(c > 0 for f, c in tensor_ops[f"attention_dh{dh}"].items()
+                      if "attention_prefill_kernel" in f),
+                  f"the bf16 attention kernel (Dh {dh}) has no tensor-core instruction")
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.time() - t0, 3),
-          "ptxas": {n: [ln for ln in build.ptxas_info(n)
-                        if "entry function" in ln or "registers" in ln or "smem" in ln
-                        or "spill" in ln]
-                    for n in ("chacha20", "kmeans")},
+          "ptxas": {**{n: [ln for ln in build.ptxas_info(n)
+                           if "entry function" in ln or "registers" in ln or "smem" in ln
+                           or "spill" in ln]
+                       for n in ("chacha20", "kmeans")},
+                    **{f"attention_dh{dh}": [ln for ln in build.ptxas_info(
+                        "attention", {"HEAD_DIM": dh}) if "registers" in ln or "spill" in ln]
+                       for dh in ATTN_HEAD_DIMS}},
           "sass_tensor_core_ops": tensor_ops,
           "sass_chacha20": sass["chacha20"]})
     return smi
@@ -517,6 +544,105 @@ def kernel_device_ms(fn, reps: int) -> float:
     ms = cuda_ms(graph.replay, 3, 1) / reps
     del graph
     return ms
+
+
+# attention: the prefill kernel at granite-moe's and qwen2-moe's per-layer shapes
+ATTN_HEAD_DIMS = (64, 128, 16)  # the published models' head sizes, the reduced configs'
+ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 4096, 24, 8, 64),
+               "qwen2-moe-a2.7b": (8, 4096, 16, 16, 128)}  # B, T, H, Hkv, Dh
+ATTN_F32_TOL = 2**-16  # the float32 kernel against float64; a 16-bit rounding reads ~2**-9
+
+
+def attn_exact(q, k, v, dtype=torch.float32):
+    """Causal softmax(q k^T / sqrt(Dh)) v in `dtype`, one batch row at a time."""
+    h, dh = q.shape[2], q.shape[3]
+    kk = k.to(dtype).repeat_interleave(h // k.shape[2], dim=2)
+    vv = v.to(dtype).repeat_interleave(h // k.shape[2], dim=2)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    for i in range(q.shape[0]):
+        s = torch.einsum("thd,shd->hts", q[i].to(dtype), kk[i]) / dh ** 0.5
+        keep = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device).tril()
+        out[i] = torch.einsum("hts,shd->thd", s.masked_fill(~keep, float("-inf")).softmax(-1),
+                              vv[i])
+        del s, keep
+    return out
+
+
+def attn_plain(cfg, q, k, v):
+    """The plain path of a prefill's attention: the model's `attend`, query
+    chunks of `cfg.attn_chunk`."""
+    from repro_torch.models.attention import attend
+
+    pos = torch.arange(q.shape[1], device=q.device)[None].expand(q.shape[0], -1)
+    return attend(cfg, q, k, v, pos, pos, None, True)
+
+
+def _rel_err(x, want) -> float:
+    return float((x.to(want.dtype) - want).norm() / want.norm())
+
+
+def phase_attention(dev):
+    """The prefill attention kernel against its bound, the plain path and a
+    library call (a yardstick the port never calls) at the main path's
+    per-layer shapes; its error and the plain path's against float32 over
+    the whole batch. Its float32 specialisation (float32 models on the
+    card) at granite's shape, one prompt, against float64 and the plain
+    path's float32 matmuls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as ak
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"phase": "attention"}
+    for arch, (b, t, h, hkv, dh) in ATTN_SHAPES.items():
+        cfg = get_config(arch)
+        check((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (h, hkv, dh),
+              f"attention: {arch}'s heads are not {h}, {hkv}, {dh}")
+        g = torch.Generator(device=dev).manual_seed(dh)
+        q, k, v = (torch.randn((b, t, n, dh), generator=g, device=dev).to(torch.bfloat16)
+                   for n in (h, hkv, hkv))
+        got = ak.attention_prefill_cuda(q, k, v)
+        check(torch.equal(got, ak.attention_prefill_cuda(q, k, v)),
+              f"attention: two runs differ at {arch}'s shape")
+        want = attn_exact(q, k, v)
+        err = {"kernel": _rel_err(got, want), "plain": _rel_err(attn_plain(cfg, q, k, v), want)}
+        check(err["kernel"] <= err["plain"], f"attention: kernel error {err} at {arch}'s shape")
+        del got, want
+        flops = 4 * b * h * t * t * dh / 2
+        ms = kernel_device_ms(lambda: ak.attention_prefill_cuda(q, k, v), 10)
+        plain_ms = cuda_ms(lambda: attn_plain(cfg, q, k, v), 3, 1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        out[arch] = {"shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "Dh": dh},
+                     "ms": ms, "bound_ms": 1e3 * flops / PEAK_BF16_S, "bound_by": "operations",
+                     "pct_of_peak": 100 * flops / PEAK_BF16_S / (ms / 1e3),
+                     "plain_ms": plain_ms, "plain_attn_chunk": cfg.attn_chunk,
+                     "library_ms": library_ms,
+                     "library": "scaled_dot_product_attention(is_causal, enable_gqa) on "
+                                "(B, H, T, Dh) copies; a yardstick, never called by the port",
+                     "rel_err_vs_f32": err, "rel_err_rows": b}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    arch = "granite-moe-3b-a800m"  # float32, one prompt
+    cfg = get_config(arch)
+    _, t, h, hkv, dh = ATTN_SHAPES[arch]
+    g = torch.Generator(device=dev).manual_seed(dh + 1)
+    q, k, v = (torch.randn((1, t, n, dh), generator=g, device=dev) for n in (h, hkv, hkv))
+    got = ak.attention_prefill_cuda(q, k, v)
+    check(got.dtype == torch.float32 and torch.equal(got, ak.attention_prefill_cuda(q, k, v)),
+          "attention: float32 runs differ")
+    want = attn_exact(q, k, v, torch.float64)
+    err = {"kernel": _rel_err(got, want), "plain": _rel_err(attn_plain(cfg, q, k, v), want)}
+    check(err["kernel"] <= ATTN_F32_TOL, f"attention: float32 kernel error {err}")
+    del got, want
+    out["float32"] = {"arch": arch, "shape": {"B": 1, "T": t, "H": h, "Hkv": hkv, "Dh": dh},
+                      "ms": kernel_device_ms(lambda: ak.attention_prefill_cuda(q, k, v), 3),
+                      "plain_ms": cuda_ms(lambda: attn_plain(cfg, q, k, v), 3, 1),
+                      "rel_err_vs_f64": err, "tolerance": ATTN_F32_TOL}
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 def _round_tree(rng, rows: int = SHARDS, n_shards: int = SHARDS):
@@ -1564,6 +1690,7 @@ def lm_small_on_card_and_cpu(dev):
     versions); the largest difference of each logits set."""
     from repro_torch import VirtualMesh
     from repro_torch.configs import get_config
+    from repro_torch.kernels.attention import kernel as ak
     from repro_torch.models.lm import LM, init_params
     from repro_torch.serve.engine import decode_step, init_cache, prefill
 
@@ -1573,22 +1700,27 @@ def lm_small_on_card_and_cpu(dev):
     card_model.load_state_dict(cpu_model.state_dict())
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, cfg.vocab_size, (2, 18)).astype(np.int32))
-    outs = {}
+    outs, attn = {}, {}
     for name, model, device in (("card", card_model, dev), ("cpu", cpu_model, "cpu")):
         mesh = VirtualMesh(LM_SMALL_SHARDS, device)
         cache = init_cache(cfg, 2, 24, device)
         t = toks.to(device)
+        before = ak.launches
         got = [prefill(cfg, model, t[:, :16], cache, mesh=mesh, secure_moe=_secure_cfg())]
+        attn[name] = ak.launches - before
         for i in (16, 17):
             got.append(decode_step(cfg, model, cache, t[:, i:i + 1], mesh=mesh))
         outs[name] = [g.float().cpu() for g in got]
+    check(attn == {"card": cfg.n_layers, "cpu": 0},
+          f"lm_serve: {attn} attention launches in the reduced {cfg.dtype} prefills")
     diffs = []
     for a, b in zip(outs["card"], outs["cpu"]):
         check(torch.allclose(a, b, rtol=LM_SMALL_TOL, atol=LM_SMALL_TOL),
               f"lm_serve: card != CPU on the reduced model (max diff {float((a - b).abs().max())})")
         diffs.append(float((a - b).abs().max()))
     return {"arch": cfg.name + " (reduced)", "shards": LM_SMALL_SHARDS, "secure": True,
-            "steps": ["prefill", "decode", "decode"], "max_abs_diff": diffs,
+            "dtype": cfg.dtype, "steps": ["prefill", "decode", "decode"],
+            "attention_launches_card_prefill": attn["card"], "max_abs_diff": diffs,
             "tolerance": LM_SMALL_TOL}
 
 
@@ -1606,6 +1738,7 @@ def phase_lm_serve(dev):
     from repro_torch import VirtualMesh
     from repro_torch.configs import get_config
     from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.chacha20 import kernel as ck
     from repro_torch.models.lm import init_params
     from repro_torch.models.moe import _capacity, padded_experts
@@ -1637,9 +1770,11 @@ def phase_lm_serve(dev):
     gen, prompts, cache = setup(batch)
     torch.cuda.synchronize()
     ck.launches = 0
+    attn_before = ak.launches
     with record_wire_bytes() as recs:
         lg_secure, first_s = timed(lambda: run_prefill(sec))
     launches = ck.launches
+    attn_launches = ak.launches - attn_before
     if torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
         batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
         batch = 4
@@ -1648,11 +1783,15 @@ def phase_lm_serve(dev):
         torch.cuda.reset_peak_memory_stats()
         gen, prompts, cache = setup(batch)
         ck.launches = 0
+        attn_before = ak.launches
         with record_wire_bytes() as recs:
             lg_secure, first_s = timed(lambda: run_prefill(sec))
         launches = ck.launches
+        attn_launches = ak.launches - attn_before
     check(launches == 4 * cfg.n_layers,
           f"lm_serve: {launches} ChaCha launches in a secure prefill, not {4 * cfg.n_layers}")
+    check(attn_launches == cfg.n_layers,
+          f"lm_serve: {attn_launches} attention launches in a prefill, not {cfg.n_layers}")
     check(len(recs) == 2 * cfg.n_layers and all(r["secure"] for r in recs),
           f"lm_serve: {len(recs)} wire records in a secure prefill")
     kv_secure = cache["k"].clone()
@@ -1672,6 +1811,7 @@ def phase_lm_serve(dev):
 
     # 64 sampled decode steps from the prompt's cache
     ck.launches = 0
+    attn_before = ak.launches
     torch.cuda.synchronize()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     lg = lg_secure
@@ -1684,6 +1824,7 @@ def phase_lm_serve(dev):
     decode_s = time.perf_counter() - t0
     check(bool(finite), "lm_serve: non-finite decode logits")
     check(ck.launches == 0, f"lm_serve: {ck.launches} ChaCha launches in decode")
+    check(ak.launches == attn_before, "lm_serve: decode launched the attention kernel")
     nxt = sample(lg, cfg.vocab_size, 0.8, gen)
     kv_len = int(cache["pos"][0])
     prof, busy_ms, top = _profiled(lambda: timed(lambda: decode_step(cfg, model, cache, nxt,
@@ -1738,6 +1879,7 @@ def phase_lm_serve(dev):
            "wire_bytes_per_prefill": sum(r["wire_bytes"] for r in recs) * LM_SHARDS,
            "wire_bytes_per_leg": leg_bytes,
            "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
+           "attention_launches_per_prefill": attn_launches, "attention_launches_per_decode": 0,
            "chacha": crypt, "secure_equals_plain": True, "logits_finite": True,
            "reduced_card_vs_cpu": small, "launches": {"chacha20": launches},
            "phase_s": time.perf_counter() - t_phase}
@@ -2979,6 +3121,7 @@ def phase_lm_published(dev, phase: str) -> dict:
     from repro_torch import VirtualMesh
     from repro_torch.configs import get_config, get_shape
     from repro_torch.core.shuffle import record_wire_bytes
+    from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.chacha20 import kernel as ck
     from repro_torch.kernels.kmeans import kernel as kk
     from repro_torch.models.lm import init_params
@@ -3040,13 +3183,13 @@ def phase_lm_published(dev, phase: str) -> dict:
         return prefill(cfg, model, prompts, cache, mesh=mesh, secure_moe=secure)
 
     def first_prefill():
-        before = ck.launches
+        before, attn_before = ck.launches, ak.launches
         with record_wire_bytes() as recs, _routing_recorded(max(e_pad, 1), dev) as routed:
             lg, s = timed(run_prefill)
-        return lg, s, ck.launches - before, recs, routed
+        return lg, s, ck.launches - before, recs, routed, ak.launches - attn_before
 
     prompts, cache = setup(batch)
-    lg_first, first_s, launches, recs, routed = first_prefill()
+    lg_first, first_s, launches, recs, routed, attn_launches = first_prefill()
     if not big and torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
         batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
         batch = 4
@@ -3054,8 +3197,10 @@ def phase_lm_published(dev, phase: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         prompts, cache = setup(batch)
-        lg_first, first_s, launches, recs, routed = first_prefill()
+        lg_first, first_s, launches, recs, routed, attn_launches = first_prefill()
     check(bool(torch.isfinite(lg_first[:, :vocab]).all()), f"{cfg.name}: non-finite prefill logits")
+    check(attn_launches == cfg.n_layers,
+          f"{cfg.name}: {attn_launches} attention launches in a prefill, not {cfg.n_layers}")
     runs = {"plain": [], "secure": []}
     if moe:
         check(launches == 4 * cfg.n_layers,
@@ -3138,6 +3283,7 @@ def phase_lm_published(dev, phase: str) -> dict:
            "decode_step_bytes": dec_bytes, "decode_bound_ms": 1e3 * dec_bytes / PEAK_BYTES_S,
            "decode_bound_by": "bytes", "peak_memory_bytes": peak,
            "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
+           "attention_launches_per_prefill": attn_launches, "attention_launches_per_decode": 0,
            "launches": {"chacha20": ck.launches, "kmeans_assign": kk.launches}}
     check(kk.launches == 0, f"{phase}: the k-means kernel ran")
     if moe:
@@ -3754,9 +3900,17 @@ def _main(plan: tuple) -> int:
     from repro_torch.core.kmeans import generate_points
     from repro_torch.kernels import _build
 
+    from repro_torch.kernels.attention import kernel as ak
+
     dev = torch.device("cuda")
     smi = phase_device(_build)
     cha = phase_chacha(dev)
+    att = phase_attention(dev)
+    attn_by_path = {}  # the attention kernel's launches on each path from here on
+    ak.launches = 0
+
+    def attn_path(name):
+        attn_by_path[name] = ak.launches - sum(attn_by_path.values())
 
     pts_np, _ = generate_points(N_POINTS, K, d=D, seed=0)  # kept for serve and calibrate
     points = torch.from_numpy(pts_np).to(dev)
@@ -3788,29 +3942,42 @@ def _main(plan: tuple) -> int:
     del tokens, pts_np
     freed["calibrate"] = collect_garbage()
     torch.cuda.empty_cache()
+    attn_path("kmeans_sort_grep_wordcount_serve_calibrate")
     enc = phase_enclave(dev)
     freed["enclave"] = collect_garbage()
     paper = phase_paper(dev)
     freed["paper"] = collect_garbage()
+    attn_path("enclave_paper")
     torch.cuda.empty_cache()
     lm = phase_lm_serve(dev)
     freed["lm_serve"] = collect_garbage()
+    attn_path("lm_serve")
     torch.cuda.empty_cache()
     tr = phase_lm_train(dev)
     freed["lm_train"] = collect_garbage()
+    attn_path("lm_train")
     fam = {}
     for phase in FAMILY_PHASES:
         torch.cuda.empty_cache()
         fam[phase] = phase_lm_family(dev, phase)
         freed[phase] = collect_garbage()
+        attn_path(phase)
     pub = {}
     for phase in PUBLISHED_PHASES:
         torch.cuda.empty_cache()
         pub[phase] = phase_lm_published(dev, phase)
         freed[phase] = collect_garbage()
+        attn_path(phase)
     torch.cuda.empty_cache()
     hill = phase_hillclimb_lm(dev, plan)
     freed["hillclimb_lm"] = collect_garbage()
+    attn_path("hillclimb_lm")
+    check(all(attn_by_path[p] == 0 for p in ("kmeans_sort_grep_wordcount_serve_calibrate",
+                                              "enclave_paper", "lm_train")),
+          f"the attention kernel ran outside a prefill: {attn_by_path}")
+    check(all(attn_by_path[p] > 0 for p in ("lm_serve", "lm_hybrid", "lm_audio",
+                                             *PUBLISHED_PHASES)),
+          f"a prefill path did not launch the attention kernel: {attn_by_path}")
     emit({"phase": "memory", "freed_by_collector_bytes": freed})
 
     rounds = fit["rounds_executed"]
@@ -3901,6 +4068,16 @@ def _main(plan: tuple) -> int:
          "d128_k1024": {f: km["d128_k1024"][f] for f in (
              "ms", "kernel_ms", "plain_ms", "plain_shards", "library_ms", "bound_ms",
              "bound_by", "bound_tc_ms", "bound_tc_by", "bound_bytes_ms", "max_abs_err")}},
+        {"name": "attention_prefill", "route": "cuda",
+         "source": "src/repro_torch/csrc/attention.cu",
+         "replaces": None,
+         "replaces_note": "no Pallas kernel: the JAX package's attention is plain jnp "
+                          "code; it replaces the port's chunked score passes in a prefill",
+         "bound_by": "operations (tensor cores); the scores stay on chip",
+         "launches": lm["attention_launches_per_prefill"],
+         "launches_per_prefill_lm_serve": lm["attention_launches_per_prefill"],
+         "launches_by_path": attn_by_path,
+         **{arch: att[arch] for arch in ATTN_SHAPES}},
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

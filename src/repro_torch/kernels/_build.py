@@ -6,10 +6,13 @@ library, compiled at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v
 
-into `<repo>/build/kernels/` (git-ignored). The library's file name carries
-a hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once. A build writes to a temporary name and renames
-it into place, so concurrent processes never load a half-written library.
+into `<repo>/build/kernels/` (git-ignored). A source built once for each
+value of a compile-time constant (the attention kernel's head size) takes
+`defines`, passed as `-D<name>=<value>` and named in the library's file
+name. The file name carries a hash of the source and flags, so an edited
+source rebuilds and an unchanged one loads at once. A build writes to a
+temporary name and renames it into place, so concurrent processes never
+load a half-written library.
 `ptxas -v`'s register and shared-memory report is kept beside the library
 (`ptxas_info`). Nothing here runs at import: the CPU tests import every
 module, and this machine may have no `nvcc`.
@@ -29,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,21 +47,26 @@ def _nvcc() -> str:
                        f"the kernels in {CSRC_DIR}")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: dict | None) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted((defines or {}).items()))]
+
+
+def library_path(name: str, defines: dict | None = None) -> Path:
     """Where `csrc/<name>.cu` is built: keyed by its source and flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    variant = "".join(f"_{k.lower()}{v}" for k, v in sorted((defines or {}).items()))
+    return BUILD_DIR / f"lib{name}{variant}-{digest}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines: dict | None = None):
     """Start nvcc for one source; returns (process, tmp, out) or None if built."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -73,9 +81,10 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)
 
 
-def build(*names: str) -> None:
-    """Build the named sources, all nvcc processes running at once."""
-    started = {n: _start(n) for n in names}
+def build(*names: str, defines: dict | None = None) -> None:
+    """Build the named sources (each with `defines`), all nvcc processes
+    running at once."""
+    started = {n: _start(n, defines) for n in names}
     try:
         for n, s in started.items():
             if s is not None:
@@ -87,22 +96,24 @@ def build(*names: str) -> None:
                 s[0].wait()
 
 
-def ptxas_info(name: str) -> list[str]:
+def ptxas_info(name: str, defines: dict | None = None) -> list[str]:
     """The `ptxas info` lines of a build (entry functions, registers, shared
     memory) and the stack/spill line that follows each function's properties."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     if not log.exists():
         return []
     return [ln.strip() for ln in log.read_text().splitlines()
             if "ptxas info" in ln or "spill" in ln]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for `csrc/<name>.cu`, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: dict | None = None) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu` (with `defines`), built first
+    if needed."""
+    key = (name, tuple(sorted((defines or {}).items())))
+    lib = _loaded.get(key)
     if lib is None:
-        build(name)
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        build(name, defines=defines)
+        lib = _loaded[key] = ctypes.CDLL(str(library_path(name, defines)))
     return lib
 
 

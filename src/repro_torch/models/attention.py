@@ -6,12 +6,20 @@ masked softmax runs in `cfg.softmax_dtype` as the reference's does, which
 (B, S, Hkv, Dh); GQA groups G = H // Hkv. The query-chunked path walks query
 blocks of `cfg.attn_chunk` against the full K/V, so the live scores are
 O(C·S) instead of O(T·S). Decode (T=1) always takes the dense path.
+
+A serving prefill goes through `prefill_self_attention`, which on the card
+launches the fused causal kernel (`repro_torch.kernels.attention`: the
+scores stay on chip) and elsewhere runs `attend` as `self_attention` does.
+Training (the kernel has no backward), decode, cross-attention and the
+encoder's non-causal attention keep `self_attention` and `attend`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import kernel_calls, uses_kernel
+from repro_torch.kernels.attention.kernel import attention_prefill_cuda
 from repro_torch.models.layers import Norm, Params, rmsnorm, rope
 
 NEG_INF = -1e30
@@ -107,6 +115,23 @@ def self_attention(cfg, params, x, positions, k_valid=None, causal=None, kv=None
     q = project_q(cfg, params, x, positions)
     k, v = kv if kv is not None else project_kv(cfg, params, x, positions)
     ctx = attend(cfg, q, k, v, positions, positions, k_valid, causal)
+    return out_proj(cfg, params, ctx)
+
+
+def prefill_self_attention(cfg, params, x, positions, kv):
+    """Causal `self_attention` of a serving prefill over positions 0..T-1,
+    no gradient, `kv` the (k, v) that `project_kv` gives for x: the fused
+    kernel for a CUDA tensor, `attend` (the same bits as `self_attention`)
+    for any other. Each call is noted in `kernel_calls["attention_prefill"]`."""
+    if not cfg.causal:
+        raise ValueError("a serving prefill's self-attention is causal")
+    q = project_q(cfg, params, x, positions)
+    k, v = kv
+    kernel_calls.note("attention_prefill")
+    if uses_kernel("auto", q):
+        ctx = attention_prefill_cuda(q, k, v)
+    else:
+        ctx = attend(cfg, q, k, v, positions, positions, None, True)
     return out_proj(cfg, params, ctx)
 
 

@@ -20,6 +20,11 @@ the shards takes the replicated dispatch, which has no exchange). The
 reference's `cache_specs` (a PartitionSpec tree) has no counterpart on one
 card.
 
+A prefill's self-attention is `attention.prefill_self_attention`: on the
+card one launch a layer of the fused attention kernel, counted in
+`kernels.kernel_calls["attention_prefill"]` (as its plain version is on
+the CPU); a decode step's is the plain path.
+
 Instruments (`repro_torch.tools.opcount`): a prefill is the span
 `engine.prefill`, each self-attention in it `engine.attention` (a layer of
 the dense, MoE and VLM families tagged with its index, `layer`, which the
@@ -90,7 +95,7 @@ def _prefill_attn(cfg, p, x, positions, cache_k, cache_v):
     with spans.span("engine.attention"):
         hn = apply_norm(cfg, p.ln1, x)
         k, v = attn.project_kv(cfg, p.attn, hn, positions)
-        x = x + attn.self_attention(cfg, p.attn, hn, positions, kv=(k, v))
+        x = x + attn.prefill_self_attention(cfg, p.attn, hn, positions, kv=(k, v))
         _store_kv(cache_k, cache_v, k, v)
         return x
 

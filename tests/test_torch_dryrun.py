@@ -61,7 +61,10 @@ def test_abstract_counts_equal_a_real_cpu_run(arch, kind):
         per_layer = 8 if kind == "train" else 4
         micro = dryrun.pick_accum(get_config(arch), shape) if kind == "train" else 1
         n = over["n_layers"] * per_layer * micro
-        assert meta["kernel_calls"] == {"chacha20_xor_packed": n}
+        want = {"chacha20_xor_packed": n}
+        if kind == "prefill":  # and the prefill's attention, once a layer
+            want["attention_prefill"] = over["n_layers"]
+        assert meta["kernel_calls"] == want
         assert meta["collectives"]["wire_bytes"] > 0
 
 

@@ -1478,3 +1478,240 @@ def test_published_width_depth_2_card_equals_cpu(cuda, arch, shards, secure):
     got, _ = _lm_serve(cfg, card_model, toks.to(cuda), VirtualMesh(shards, cuda), sec)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g.float().cpu(), w_.float(), rtol=1e-3, atol=1e-3)
+
+
+# --- the prefill's fused causal attention kernel --------------------------------
+# Tolerance, bf16: against a float32 softmax of the same bf16 q, k, v, the
+# kernel's relative (Frobenius) error may not pass ATTN_REL_TOL, two bf16
+# roundings (its weights P before the P V product, the context it writes:
+# 2**-9 each), nor the plain path's own error on the same inputs (the kernel
+# replaces it and must be at least as precise: it keeps the scores in float32
+# where the plain path rounds them to bf16 first).
+ATTN_REL_TOL = 2 * 2**-9
+# float32: against a float64 softmax, ATTN_F32_REL_TOL = 2**-16. The kernel's
+# products and sums are float32, ~1e-7 apart from float64; a kernel that
+# rounded an input or a weight to 16 bits (2**-9 for bf16, 2**-11 for fp16)
+# would read 100 times more.
+ATTN_F32_REL_TOL = 2**-16
+
+
+def _attn_inputs(b, t, h, hkv, dh, device, seed=0, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((b, t, n, dh), generator=g, device=device).to(dtype)
+            for n in (h, hkv, hkv)]
+
+
+def _attn_exact(q, k, v, dtype=torch.float32):
+    """Causal softmax(q k^T / sqrt(Dh)) v in `dtype`, a batch row at a time."""
+    h, dh = q.shape[2], q.shape[3]
+    g = h // k.shape[2]
+    kk = k.to(dtype).repeat_interleave(g, dim=2)
+    vv = v.to(dtype).repeat_interleave(g, dim=2)
+    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    for i in range(q.shape[0]):
+        s = torch.einsum("thd,shd->hts", q[i].to(dtype), kk[i]) / dh ** 0.5
+        keep = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device).tril()
+        out[i] = torch.einsum("hts,shd->thd", s.masked_fill(~keep, float("-inf")).softmax(-1),
+                              vv[i])
+    return out
+
+
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _plain_attend(q, k, v):
+    """The plain path a prefill took before the kernel: `attend` with the
+    serving config's query chunks, at these heads."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attend
+
+    cfg = replace(get_config("granite-moe-3b-a800m"), n_heads=q.shape[2],
+                  n_kv_heads=k.shape[2], d_head=q.shape[3])
+    pos = torch.arange(q.shape[1], device=q.device)[None].expand(q.shape[0], -1)
+    return attend(cfg, q, k, v, pos, pos, None, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,hkv,dh", [
+    (2, 4096, 24, 8, 64),    # granite-moe's prefill shape, two prompts
+    (2, 1, 16, 16, 128), (2, 77, 16, 16, 128), (2, 2085, 16, 16, 128),  # Dh 128, G 1
+    (2, 1, 48, 1, 128), (2, 77, 48, 1, 128), (2, 2085, 48, 1, 128),     # Dh 128, G 48 (MQA)
+    (3, 77, 6, 2, 16), (1, 2085, 4, 4, 80),
+])
+def test_attention_prefill_kernel_matches_plain(cuda, b, t, h, hkv, dh):
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _attn_inputs(b, t, h, hkv, dh, cuda, seed=t + dh)
+    before = kernel.launches
+    got = kernel.attention_prefill_cuda(q, k, v)
+    again = kernel.attention_prefill_cuda(q, k, v)
+    assert kernel.launches == before + 2
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)  # no atomics: the same bits
+    want = _attn_exact(q, k, v)
+    err, plain_err = _rel(got, want), _rel(_plain_attend(q, k, v), want)
+    assert err <= ATTN_REL_TOL and err <= plain_err + 1e-6, (err, plain_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,hkv,dh", [
+    (1, 64, 32, 32, 64),      # zamba2's shared attention, the card-against-CPU prompt
+    (2, 77, 16, 16, 128), (2, 2085, 48, 1, 128),  # Dh 128, G 1 and G 48
+    (3, 33, 6, 2, 16), (1, 1, 4, 4, 80), (1, 1000, 12, 4, 64),
+])
+def test_attention_prefill_kernel_float32_matches_float64(cuda, b, t, h, hkv, dh):
+    """A float32 model on the card: the kernel's float32 specialisation,
+    products on the CUDA cores, against float64."""
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _attn_inputs(b, t, h, hkv, dh, cuda, seed=t + dh, dtype=torch.float32)
+    before = kernel.launches
+    got = kernel.attention_prefill_cuda(q, k, v)
+    assert kernel.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.float32
+    assert torch.equal(got, kernel.attention_prefill_cuda(q, k, v))
+    assert _rel(got, _attn_exact(q, k, v, torch.float64)) <= ATTN_F32_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_prefill_kernel_reads_strided_inputs(cuda, dtype):
+    """q, k, v as views of one fused (B, T, H + 2 Hkv, Dh) projection: no
+    copy in, the same bits as from contiguous copies."""
+    from repro_torch.kernels.attention import kernel
+
+    b, t, h, hkv, dh = 2, 300, 8, 2, 64
+    qkv = torch.randn((b, t, h + 2 * hkv, dh), device=cuda).to(dtype)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hkv], qkv[:, :, h + hkv:]
+    assert not q.is_contiguous()
+    got = kernel.attention_prefill_cuda(q, k, v)
+    tol = ATTN_REL_TOL if dtype == torch.bfloat16 else ATTN_F32_REL_TOL
+    assert _rel(got, _attn_exact(q, k, v, torch.float64)) <= tol
+    assert torch.equal(got, kernel.attention_prefill_cuda(q.contiguous(), k.contiguous(),
+                                                         v.contiguous()))
+
+
+@pytest.mark.gpu
+def test_attention_prefill_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _attn_inputs(1, 64, 4, 2, 64, cuda)
+    before = kernel.launches
+    cases = [
+        ((q[..., :48].contiguous(), k, v), r"\(B, T, Hkv, Dh\)"),  # Dh differs, q to k
+        ((q, k[:, :32], v[:, :32]), r"\(B, T, Hkv, Dh\)"),        # fewer keys than queries
+        ((q.half(), k.half(), v.half()), "one of"),           # float16
+        ((q, k.float(), v.float()), "one of"),                 # dtypes differ
+        ((q.cpu(), k.cpu(), v.cpu()), "CUDA tensor"),         # device
+        ((q[..., ::2], k[..., ::2], v[..., ::2]), "contiguous"),  # Dh not contiguous
+    ]
+    for args, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            kernel.attention_prefill_cuda(*args)
+    for dh in (8, 72, 144):  # head sizes outside 16..128 in steps of 16
+        qd, kd, vd = _attn_inputs(1, 16, 2, 2, dh, cuda)
+        with pytest.raises(ValueError, match="Dh in"):
+            kernel.attention_prefill_cuda(qd, kd, vd)
+    q3, k3, v3 = _attn_inputs(1, 16, 3, 2, 64, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        kernel.attention_prefill_cuda(q3, k3, v3)
+    assert kernel.launches == before
+
+
+# One warm call under the profiler in a process of its own: in a long test
+# process the profiler has been seen to report no device events at all once
+# earlier tests profiled, and to lose the first kernel after a synchronise
+# (hence the two spin kernels, filtered out).
+_ATTN_PROFILED = """
+import json, sys, torch
+from repro_torch.kernels.attention import kernel
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v = (torch.randn((2, 1000, n, 64), generator=g, device="cuda").to(getattr(torch, sys.argv[1]))
+           for n in (12, 4, 4))
+kernel.attention_prefill_cuda(q, k, v)
+torch.cuda.synchronize()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda._sleep(1000)
+    torch.cuda._sleep(1000)
+    kernel.attention_prefill_cuda(q, k, v)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,name", [(torch.bfloat16, "attention_prefill_kernel"),
+                                        (torch.float32, "attention_prefill_f32_kernel")])
+def test_attention_prefill_kernel_is_one_launch_and_never_syncs(cuda, dtype, name):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _attn_inputs(2, 1000, 12, 4, 64, cuda, dtype=dtype)
+    kernel.attention_prefill_cuda(q, k, v)  # the build and the first launch
+    torch.cuda.synchronize()
+    before = kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel.attention_prefill_cuda(q, k, v)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernel.launches == before + 1
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p)}
+    out = subprocess.run([sys.executable, "-c", _ATTN_PROFILED, str(dtype).split(".")[-1]],
+                         env=env, capture_output=True, text=True, timeout=600, check=True)
+    names = [n for n in json.loads(out.stdout.splitlines()[-1]) if "spin_kernel" not in n]
+    assert len(names) == 1 and name in names[0], names
+
+
+@pytest.mark.gpu
+def test_engine_prefill_with_the_kernel_matches_the_plain_path(cuda, monkeypatch):
+    """granite-moe at its published widths, 4 layers, bf16, experts on 8
+    virtual shards, the exchange encrypted: a prefill of 2 x 2,085 tokens
+    through the kernel against the same prefill through the plain path on
+    the card, within the secure_prefill cell's limits (logits 0.10, the
+    worst layer's K or V 0.19); one kernel launch and one `kernel_calls`
+    note a layer, none in a decode step."""
+    from dataclasses import replace
+
+    from repro_torch import VirtualMesh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kernel_calls
+    from repro_torch.kernels.attention import kernel
+    from repro_torch.models import attention
+    from repro_torch.models.lm import init_params
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    cfg = replace(get_config("granite-moe-3b-a800m"), n_layers=4)
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), 8, cuda)
+    mesh = VirtualMesh(8, cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2086), device=cuda, dtype=torch.int32,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+
+    def run():
+        cache = init_cache(cfg, 2, 2086, cuda)
+        return prefill(cfg, model, toks[:, :2085], cache, mesh=mesh, secure_moe=_cfg()), cache
+
+    before = kernel.launches
+    with kernel_calls.recording() as calls:
+        got, cache = run()
+    assert kernel.launches - before == calls["attention_prefill"] == cfg.n_layers
+    with kernel_calls.recording() as dec:
+        decode_step(cfg, model, cache, toks[:, 2085:], mesh=mesh)
+    assert dec.get("attention_prefill", 0) == 0 and kernel.launches - before == cfg.n_layers
+    monkeypatch.setattr(attention, "uses_kernel", lambda impl, q: False)
+    want, want_cache = run()
+    assert kernel.launches - before == cfg.n_layers
+    assert _rel(got, want) <= 0.10
+    for name in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            assert _rel(cache[name][layer, :, :2085], want_cache[name][layer, :, :2085]) <= 0.19

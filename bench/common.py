@@ -2,12 +2,35 @@
 spans, and the judge that decides `correct`.
 
 Layout under `bench/` (a later cell, configuration or metric adds files):
-  configs/<config>.json    a configuration as it is run: source, deployment
-                           or model sizes, `reduced`, `assumed`
+  configs/<config>.json    a configuration as it is run (the file
+                           BENCHMARK.json names): source, deployment or model
+                           sizes, `reduced`, `assumed`; a language model's
+                           also `reference_module`, its module under
+                           `reference/` (`granite_moe` where absent: see
+                           `drivers/lm.py`), and `tiny`, model sizes the CPU
+                           tests set after `tiny.TINY_MODEL`
+  reference/<module>.py    a plain reference: plain PyTorch, nothing of the
+                           port; a language model's gives its weights, its
+                           forward pass and its counts (`drivers/lm.py`)
   traffic/<workload>.json  a cell's traffic: `kind` picks `drivers/<kind>.py`,
                            the rest are its parameters
   limits/<workload>.json   each number the check compares, with its limit
-  metrics/<metric>.py      one per-layer metric: `read(run)` -> number or None
+  metrics/<metric>.py      one per-layer metric: `read(run)` -> number or
+                           None, and optionally
+                             KERNEL   the name of its `metrics/kernels/
+                                      <KERNEL>.txt`: a kernel's metric, which
+                                      reads None where the trace lacks it
+                             PROGRAM  True where it reads the port's spans or
+                                      counters: a cell that reports it has
+                                      its `--trace 1` window traced with the
+                                      port's sinks open
+                                      (`program_trace.ProgramTracedWindow`)
+                             SAMPLE   its own synthetic input for the CPU
+                                      tests, merged into their default one:
+                                      trace "events" (name, start, end[,
+                                      launch]), the port's "spans" (name,
+                                      start, end), its "counts", "facts"
+  metrics/kernels/<name>.txt  a kernel's names in the trace, one a line
 """
 
 from __future__ import annotations
@@ -42,7 +65,8 @@ def cell_spec(workload: str, spec: dict | None = None) -> dict:
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; BENCHMARK.json has {sorted(cells)}")
     cell = cells[workload]
-    config = read_json("configs", cell["config"])
+    files = {c["name"]: c["file"] for c in spec["configs"]}
+    config = json.loads((ROOT / files[cell["config"]]).read_text())
     traffic = read_json("traffic", workload)
 
     def reported(metric):
@@ -56,13 +80,18 @@ def cell_spec(workload: str, spec: dict | None = None) -> dict:
             "per_layer": per_layer}
 
 
-def metric_reader(name: str):
-    """`metrics/<name>.py`'s `read` (names may hold dots, so load by path)."""
+def metric_module(name: str):
+    """`metrics/<name>.py` (names may hold dots, so load by path)."""
     path = BENCH / "metrics" / f"{name}.py"
     mod_spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """`metrics/<name>.py`'s `read`."""
+    return metric_module(name).read
 
 
 def driver(kind: str):

@@ -97,7 +97,9 @@ class Cell(lm.LMBase):
         contexts = [self.tokens + i + 1 for r in self.requests for i in range(len(r["logits"]))]
         return common.Readings(trace=scope, rec=self.rec, cs=self.cs, facts={
             "steps": self.steps, "batch": self.batch, "model": self.m,
-            "contexts": contexts, "window_s": self.seconds})
+            "contexts": contexts, "window_s": self.seconds,
+            "decode_flops": sum(self.ref.decode_step_flops(self.m, self.batch, c)
+                                for c in contexts)})
 
     def release(self):
         self.saved = self.cache = None
@@ -119,7 +121,7 @@ class Cell(lm.LMBase):
 
     def check(self) -> dict:
         v = self.m["vocab_size"]
-        weights = lm.make_weights(self.m, self.seed, self.device, self.shards)
+        weights = self.weights()
         numbers = {"logits_rel_err": 0.0}
         self.checked = self._sample()
         for req in self.checked:
@@ -132,7 +134,7 @@ class Cell(lm.LMBase):
     def control(self, requests) -> dict:
         """The reference in fp8 put in the program's place, at the same
         prompts and served tokens."""
-        weights = lm.make_weights(self.m, self.seed, self.device, self.shards)
+        weights = self.weights()
         numbers = {"logits_rel_err": 0.0}
         for req in requests:
             seq, pos = self._positions(req)

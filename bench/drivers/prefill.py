@@ -9,11 +9,12 @@ crossed (the first 64 words of every wire row: one small copy a leg).
 
 The check, once the window has closed and the model is freed: the
 reference runs the last prefill's prompts, and a second prefill's drawn
-from the seed, and judges the program's last-token logits (the
-relative error of the logits) and the KV
-cache the last prefill left (each layer's keys and values against the
-reference's); the sampled ciphertext of every leg of the last prefill must
-decrypt, under the benchmark's own ChaCha20, to finite activations.
+from the seed, and judges the program's last-token logits (the relative
+error of the logits) and the cache the last prefill left (each layer's
+entry of every tensor the reference's `cache_sink` names, against the
+reference's: granite's keys "k" and values "v"); the sampled ciphertext of
+every leg of the last prefill must decrypt, under the benchmark's own
+ChaCha20, to finite activations.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from bench import common, wire, yardstick
+from bench import common, wire
 from bench.drivers import lm
 
 TAP_WORDS = 64  # words of each wire row kept: 4 keystream blocks
@@ -38,8 +39,8 @@ class Cell(lm.LMBase):
         self.dtype = torch.bfloat16 if self.m["dtype"] == "bfloat16" else torch.float32
         self.batch, self.tokens = self.traffic["batch"], self.traffic["prompt_tokens"]
         # the first TAP_WORDS words of every row of each leg, legs counted from `leg = 0`
-        self.taps = torch.zeros((2 * self.m["n_layers"], self.shards, self.shards, TAP_WORDS),
-                                dtype=torch.int32, device=self.device)
+        self.taps = torch.zeros((self.ref.exchange_legs(self.m), self.shards, self.shards,
+                                 TAP_WORDS), dtype=torch.int32, device=self.device)
         self.leg = 0
 
         def tap(out):
@@ -90,11 +91,15 @@ class Cell(lm.LMBase):
             "prefills": len(spans), "batch": self.batch, "tokens": self.tokens,
             "model": self.m, "shards": self.shards, "wire_bytes": self.wire_bytes,
             "span_s": spans[-1][2] - spans[0][1],
-            "leg_bytes": yardstick.moe_leg_wire_bytes(self.m, self.batch, self.tokens,
-                                                      self.shards)})
+            "prefill_flops": self.ref.prefill_flops(self.m, self.batch, self.tokens),
+            "attention_flops": self.ref.prefill_attention_flops(self.m, self.batch,
+                                                                self.tokens),
+            "legs": self.ref.exchange_legs(self.m),
+            "leg_bytes": self.ref.leg_wire_bytes(self.m, self.batch, self.tokens,
+                                                 self.shards)})
 
     def release(self):
-        self.kv = (self.cache["k"], self.cache["v"])
+        self.kept = dict(self.cache)  # every tensor of the cache, by name
         self.cache = None
         self.free_model()
 
@@ -105,14 +110,14 @@ class Cell(lm.LMBase):
         others = [i for i in range(last)]
         picked = [last] + ([int(rng.choice(others))] if others else [])
         self.checked = picked
-        weights = lm.make_weights(self.m, self.seed, self.device, self.shards)
+        weights = self.weights()
         numbers = {"wire_faults": float(self._wire_faults()), "logits_rel_err": 0.0,
                    "cache_rel_err": 0.0}
         routing: dict = {}
         for i in picked:
             toks = lm.prompts(self.m, self.seed, str(i), self.batch, self.tokens, self.device)
             sink = self._cache_sink(numbers) if i == last else None
-            ref = self.reference(toks, [self.tokens - 1], kv_sink=sink, weights=weights,
+            ref = self.reference(toks, [self.tokens - 1], cache_sink=sink, weights=weights,
                                  stats=routing)[:, 0]
             got = self.logits[i][:, :v].float()
             numbers["logits_rel_err"] = max(numbers["logits_rel_err"], lm.rel_err(got, ref))
@@ -121,8 +126,11 @@ class Cell(lm.LMBase):
         return numbers
 
     def _cache_sink(self, numbers):
-        def sink(layer, k, v):
-            for got, want in ((self.kv[0][layer], k), (self.kv[1][layer], v)):
+        """Each layer's cache tensors of the reference against the program's
+        of the same name (a name the program's cache lacks raises)."""
+        def sink(layer, tensors):
+            for name, want in tensors.items():
+                got = self.kept[name][layer]
                 numbers["cache_rel_err"] = max(numbers["cache_rel_err"],
                                                lm.rel_err(got[:, :want.shape[1]], want))
         return sink
@@ -130,20 +138,20 @@ class Cell(lm.LMBase):
     def control(self, indices) -> dict:
         """The reference in fp8 put in the program's place, judged alike."""
         numbers = {"logits_rel_err": 0.0, "cache_rel_err": 0.0}
-        weights = lm.make_weights(self.m, self.seed, self.device, self.shards)
+        weights = self.weights()
         for i in indices:
             toks = lm.prompts(self.m, self.seed, str(i), self.batch, self.tokens, self.device)
-            kv = {}
+            kept = {}
             ref = self.reference(toks, [self.tokens - 1], weights=weights,
-                                 kv_sink=lambda l, k, v: kv.__setitem__(l, (k, v)))[:, 0]
+                                 cache_sink=kept.__setitem__)[:, 0]
 
-            def sink(layer, k, v):
-                for got, want in zip((k, v), kv[layer]):
+            def sink(layer, tensors):
+                for name, got in tensors.items():
                     numbers["cache_rel_err"] = max(numbers["cache_rel_err"],
-                                                   lm.rel_err(got, want))
+                                                   lm.rel_err(got, kept[layer][name]))
 
             got = self.reference(toks, [self.tokens - 1], quant="fp8", weights=weights,
-                                 kv_sink=sink)[:, 0]
+                                 cache_sink=sink)[:, 0]
             numbers["logits_rel_err"] = max(numbers["logits_rel_err"], lm.rel_err(got, ref))
         return numbers
 
@@ -153,7 +161,7 @@ class Cell(lm.LMBase):
         if self.secure is None:
             return 0
         s = self.shards
-        words = yardstick.moe_leg_wire_bytes(self.m, self.batch, self.tokens, s) // (s * s * 4)
+        words = self.ref.leg_wire_bytes(self.m, self.batch, self.tokens, s) // (s * s * 4)
         row_blocks = -(-words // 16)
         faults = 0
         for leg in range(self.taps.shape[0]):

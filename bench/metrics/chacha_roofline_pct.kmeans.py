@@ -5,9 +5,11 @@ wire once, over the kernel's device time in the trace, in %."""
 from bench import yardstick
 from bench.common import kernel_names
 
+KERNEL = "chacha20"
+
 
 def read(run):
-    spent = run.trace.kernel_s(kernel_names("chacha20"))
+    spent = run.trace.kernel_s(kernel_names(KERNEL))
     if spent <= 0:
         return None
     f = run.facts

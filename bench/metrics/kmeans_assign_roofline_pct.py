@@ -5,9 +5,11 @@ time of the assignment kernel in the trace, in %."""
 from bench import yardstick
 from bench.common import kernel_names
 
+KERNEL = "kmeans_assign"
+
 
 def read(run):
-    spent = run.trace.kernel_s(kernel_names("kmeans_assign"))
+    spent = run.trace.kernel_s(kernel_names(KERNEL))
     if spent <= 0:
         return None
     f = run.facts

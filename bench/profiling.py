@@ -92,6 +92,7 @@ class TracedWindow(Window):
             offset_us = markers[-1][1] - self._h_marker * 1e6
         else:  # no marker recorded: take the first event as the window's start
             offset_us = (raw[0][1] if raw else 0.0) - self.t0 * 1e6
+        self.offset_us = offset_us  # the trace's clock less the host clock
         self.events = [(n, (s - offset_us) / 1e6, (s + d - offset_us) / 1e6)
                        for n, s, d in raw if MARKER not in n]
         self.events = [e for e in self.events if e[2] > self.t0 and e[1] < self.t1]

@@ -17,15 +17,18 @@ the idle time under each, the clock check and the kernel calls beside the
 trace's counts. With `--profile 0` the window is not traced and the line
 holds the end-to-end metrics: set against `run.py --trace 0` on the same
 seed, what the open sinks cost. The result is one JSON line on standard
-output. (A second profiler session in one process has been seen to trace
-no runtime call of the marker, and so no launch times.)
+output. `bench/run.py --trace 1` traces a cell's window the same way when
+one of the cell's per-layer metrics reads the program's spans or counters.
 
 Launch times. The trace holds the runtime call that launched each device
 event (`cudaLaunchKernel`, `cudaGraphLaunch`, `cudaMemcpyAsync`, ...; the
 kernels of a replayed graph share its call) under the event's correlation
 id, on the trace's host-side clock. The marker's call, made right after
 `TracedWindow` read `time.perf_counter()`, ties that clock to the host
-clock, as the marker kernel ties the device events' clock to it.
+clock, as the marker kernel ties the device events' clock to it. Where the
+marker's call went untraced (a second profiler session in one process has
+shown none; a first one, once in three runs), the device events' tie
+serves the calls too.
 """
 
 from __future__ import annotations
@@ -121,12 +124,15 @@ class ProgramTracedWindow(profiling.TracedWindow):
                 t = e.start_ns() / 1e3
                 calls[e.correlation_id()] = min(t, calls.get(e.correlation_id(), t))
         markers = sorted((d for d in device if profiling.MARKER in d[0]), key=lambda d: d[1])
-        if not markers or markers[-1][3] not in calls:
-            return
-        marker = markers[-1]
-        h = self._h_marker * 1e6
-        dev_off, host_off = marker[1] - h, calls[marker[3]] - h
-        self.marker_latency_us = marker[1] - calls[marker[3]]
+        dev_off = host_off = self.offset_us
+        if markers and markers[-1][3] in calls:
+            marker = markers[-1]
+            host_off = calls[marker[3]] - self._h_marker * 1e6
+            self.marker_latency_us = marker[1] - calls[marker[3]]
+        # else the marker's runtime call went untraced (seen once in three
+        # runs): the calls are on the device events' clock (the trace's
+        # one clock), tied to the host clock at the marker's device start,
+        # so each launch reads early by the marker's launch latency (us)
         for name, s, d, cid in device:
             if profiling.MARKER in name:
                 continue
@@ -289,45 +295,76 @@ def _count(trace, name) -> int:
     return sum(1 for s in program_spans(trace) if s[0] == name)
 
 
-def _idle_pct(prefix):
+# Readers a per-layer metric of the program's spans or counters is made of
+# (`bench/metrics/<name>.py`: `read = program_trace.device_ms_per(...)`).
+
+
+def _launches_traced(trace) -> bool:
+    return any(e[3] is not None for e in trace.launched)
+
+
+def idle_pct_in(prefix):
+    """A reader: % of the traced window the card is idle under a program span
+    whose name starts with `prefix`, innermost on the launching thread."""
     def read(run):
         t = run.trace
-        if not t.launched:
+        if not _launches_traced(t):
             return None
         idle = idle_by_span(t)
         return 100.0 * sum(v for k, v in idle.items() if k.startswith(prefix)) / t.window_s
     return read
 
 
-def _ms_per(span, per):
+def device_ms_per(span, per):
+    """A reader: device ms launched inside the program span `span` over the
+    count of the program spans `per`."""
     def read(run):
         t = run.trace
         n = _count(t, per)
-        if not t.launched or not n:
+        if not n or not _launches_traced(t):
             return None
         return 1e3 * device_by_span(t).get(span, 0.0) / n
     return read
 
 
-def _dropped_pct(run):
-    counts = run.trace.sinks.counts
-    routed = counts.get("moe.routed_entries", 0)
-    return 100.0 * counts.get("moe.dropped_entries", 0) / routed if routed else None
+def counter_pct(part, whole):
+    """A reader: the program's counter `part` as a % of its counter `whole`."""
+    def read(run):
+        counts = run.trace.sinks.counts
+        total = counts.get(whole, 0)
+        return 100.0 * counts.get(part, 0) / total if total else None
+    return read
 
 
 KMEANS, PREFILL = "kmeans-d64-k256.large_jobs", "granite-moe-3b-a800m.secure_prefill"
 # Per-layer metrics of the program's spans and counters: name -> (the cell
-# they are read in, reader); the entries a benchmark that opens the
-# program's sinks would list (PERF.md).
+# they are read in, reader). The prefill's are BENCHMARK.json's metrics
+# (`bench/metrics/<name>.py` wraps each); the k-means cell's are not, since
+# its traced window keeps the program's sinks closed (PERF.md).
 READERS = {
-    "idle_in_service_pct.kmeans": (KMEANS, _idle_pct("service.")),
-    "idle_in_driver_pct.kmeans": (KMEANS, _idle_pct("driver.")),
-    "statics_load_ms_per_round.kmeans": (KMEANS, _ms_per("driver.load", "driver.replay")),
-    "attention_ms_per_prefill": (PREFILL, _ms_per("engine.attention", "engine.prefill")),
-    "moe_route_ms_per_prefill": (PREFILL, _ms_per("moe.route", "engine.prefill")),
-    "exchange_ms_per_prefill": (PREFILL, _ms_per("shuffle.exchange", "engine.prefill")),
-    "experts_ms_per_prefill": (PREFILL, _ms_per("moe.experts", "engine.prefill")),
-    "moe_dropped_pct.prefill": (PREFILL, _dropped_pct),
+    "idle_in_service_pct.kmeans": (KMEANS, idle_pct_in("service.")),
+    "idle_in_driver_pct.kmeans": (KMEANS, idle_pct_in("driver.")),
+    "statics_load_ms_per_round.kmeans": (KMEANS, device_ms_per("driver.load", "driver.replay")),
+    "attention_ms_per_prefill": (PREFILL, device_ms_per("engine.attention", "engine.prefill")),
+    "moe_route_ms_per_prefill": (PREFILL, device_ms_per("moe.route", "engine.prefill")),
+    "exchange_ms_per_prefill": (PREFILL, device_ms_per("shuffle.exchange", "engine.prefill")),
+    "experts_ms_per_prefill": (PREFILL, device_ms_per("moe.experts", "engine.prefill")),
+    "moe_dropped_pct.prefill": (PREFILL, counter_pct("moe.dropped_entries",
+                                                     "moe.routed_entries")),
+}
+
+
+# A prefill as a synthetic trace shows it, for the CPU tests of the metrics
+# that read it: the program's spans of one thread (name, start, end), device
+# events (name, start, end, launch) launched inside them, and the counters.
+PREFILL_SAMPLE = {
+    "spans": [("engine.prefill", 0.62, 0.98), ("engine.attention", 0.63, 0.70),
+              ("moe.route", 0.70, 0.75), ("shuffle.exchange", 0.75, 0.80),
+              ("moe.experts", 0.80, 0.86), ("shuffle.exchange", 0.86, 0.90)],
+    "events": [("attention_prefill_kernel", 0.64, 0.68, 0.635), ("sort", 0.71, 0.73, 0.705),
+               ("chacha20_xor_packed", 0.76, 0.78, 0.755), ("gemm", 0.81, 0.84, 0.805),
+               ("chacha20_xor_packed", 0.87, 0.89, 0.865), ("copy", 0.92, 0.95, 0.915)],
+    "counts": {"moe.dropped_entries": 3, "moe.routed_entries": 40},
 }
 
 
@@ -343,7 +380,7 @@ def summary(trace) -> dict:
             "clock": clock_check(trace), "counts": dict(trace.sinks.counts),
             "kernel_calls": dict(trace.sinks.kernel_calls),
             "trace_counts": {k: trace.count(common.kernel_names(k))
-                             for k in ("chacha20", "kmeans_assign")}}
+                             for k in ("chacha20", "kmeans_assign", "attention_prefill")}}
 
 
 def run(workload: str, seed: int, seconds: float, profile: bool, *, device: str = "cuda",

@@ -8,6 +8,10 @@ seed, every shape of the cell warmed) is timed as `setup_s`; then the
 traffic runs for `--seconds`. `--trace 0` reports the cell's end-to-end
 metrics; `--trace 1` wraps the window in torch.profiler and reports its
 per-layer metrics, with the device's busy seconds and the traced window.
+A cell one of whose per-layer metrics reads the port's own spans or
+counters (`PROGRAM` in its `metrics/<name>.py`) has the port's sinks open
+around its traced window (`program_trace.ProgramTracedWindow`); every
+other cell's traced window, and every untraced one, leaves them closed.
 Once the window has closed and the program's state is freed, the plain
 reference judges what the timed path produced: each number compared is
 printed beside its limit, last on standard error and last in the result
@@ -50,6 +54,20 @@ def _gc_spans(rec):
     return callback
 
 
+def window_scope(cs: dict, device: str, rec, trace: bool):
+    """The cell's window: untraced, traced, or traced with the port's sinks
+    open where one of the cell's per-layer metrics reads them."""
+    from bench import common, profiling
+
+    if not trace:
+        return profiling.Window(device)
+    if any(getattr(common.metric_module(m["name"]), "PROGRAM", False) for m in cs["per_layer"]):
+        from bench import program_trace
+
+        return program_trace.ProgramTracedWindow(device, rec)
+    return profiling.TracedWindow(device, rec)
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
              chips: int = 1, adjust=None, t_start: float | None = None, spec=None):
     """One run of one cell: (result dict, checks). `adjust(cell_spec)` may
@@ -57,7 +75,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
     `spec` stands in for BENCHMARK.json."""
     import torch
 
-    from bench import common, profiling
+    from bench import common
 
     t_start = time.perf_counter() if t_start is None else t_start
     cs = common.cell_spec(workload, spec)
@@ -68,7 +86,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
     cell.setup()
     if device != "cpu":
         torch.cuda.synchronize()
-    scope = profiling.TracedWindow(device, rec) if trace else profiling.Window(device)
+    scope = window_scope(cs, device, rec, trace)
     gc_spans = _gc_spans(rec)
     gc.callbacks.append(gc_spans)
     try:

@@ -4,10 +4,16 @@ underneath in each way the cell can be, `correct` comes out false."""
 
 from __future__ import annotations
 
+import collections
+import json
+import sys
+import types
+
 import pytest
 import torch
 
 from bench import common, tiny
+from bench.drivers import prefill
 from bench.run import run_cell
 
 KMEANS = "kmeans-d64-k256.large_jobs"
@@ -22,7 +28,8 @@ def _run(workload, seed=SEED):
     return result
 
 
-@pytest.mark.parametrize("workload", [KMEANS, "kmeans-d64-k256.small_jobs", PREFILL, DECODE])
+@pytest.mark.parametrize("workload", [w["name"] for w in
+                                      tiny.with_unlisted(common.load_spec())["workloads"]])
 def test_bench_cell_correct_on_cpu(workload):
     result = _run(workload)
     assert result["correct"], result["checks"]
@@ -146,3 +153,57 @@ def test_bench_prefill_fault_is_not_correct(monkeypatch, fault):
 def test_bench_decode_fault_is_not_correct(monkeypatch, fault):
     fault(monkeypatch)
     assert not _run(DECODE)["correct"]
+
+
+def test_bench_lm_driver_takes_the_configs_reference_module(monkeypatch, tmp_path):
+    """A language model enters by files of its own: a configuration whose
+    file names another reference module (and tiny sizes of its own) runs
+    the prefill cell through that module. Here a test-only module that
+    re-exports granite_moe's functions under another name, counting calls."""
+    from bench.reference import granite_moe
+
+    calls = collections.Counter()
+    alias = types.ModuleType("bench.reference.granite_alias")
+    for name in ("weight_specs", "forward", "prefill_flops", "prefill_attention_flops",
+                 "decode_step_flops", "exchange_legs", "leg_wire_bytes"):
+        def counted(*a, _real=getattr(granite_moe, name), _name=name, **k):
+            calls[_name] += 1
+            if _name == "exchange_legs":
+                calls["n_layers"] = a[0]["n_layers"]
+            return _real(*a, **k)
+        setattr(alias, name, counted)
+    monkeypatch.setitem(sys.modules, alias.__name__, alias)
+    config = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())
+    config.update(name="granite-alias", reference_module="granite_alias", tiny={"n_layers": 3})
+    path = tmp_path / "granite-alias.json"
+    path.write_text(json.dumps(config))
+    spec = tiny.with_unlisted(common.load_spec())
+    spec["configs"] = spec["configs"] + [dict(spec["configs"][-1], name="granite-alias",
+                                               file=str(path))]
+    spec["workloads"] = [dict(w, config="granite-alias") if w["name"] == PREFILL else w
+                         for w in spec["workloads"]]
+    result, _ = run_cell(PREFILL, SEED, 1.0, False, device="cpu", adjust=tiny.shrink, spec=spec)
+    assert result["correct"], result["checks"]
+    assert calls["weight_specs"] >= 2 and calls["forward"] >= 2  # the model's, the check's
+    assert calls["exchange_legs"] >= 1 and calls["leg_wire_bytes"] >= 1
+    assert calls["n_layers"] == 3
+
+
+def test_bench_prefill_cache_check_compares_tensors_by_name():
+    """The check compares each cache tensor the reference names with the
+    program's of the same name, over the prompt's positions, and fails
+    loudly on a name the program's cache lacks."""
+    cell = prefill.Cell.__new__(prefill.Cell)
+    want = torch.ones((2, 4, 3))
+    kept = torch.zeros((2, 2, 6, 3))  # (L, B, S, ...)
+    kept[1, :, :4] = 1.0
+    kept[1, 0, 0, 0] = 1.0 + 0.5  # one element off in layer 1's "latent"
+    cell.kept = {"latent": kept, "k": torch.zeros((2, 2, 6, 3))}
+    numbers = {"cache_rel_err": 0.0}
+    sink = cell._cache_sink(numbers)
+    sink(1, {"latent": want})
+    assert numbers["cache_rel_err"] == pytest.approx(0.5 / 24 ** 0.5)
+    sink(1, {"k": want})
+    assert numbers["cache_rel_err"] == pytest.approx(1.0)
+    with pytest.raises(KeyError):
+        sink(0, {"v": want})

@@ -47,14 +47,13 @@ def test_bench_lm_fp8_control_is_not_correct(workload):
     cs = common.cell_spec(workload, tiny.with_unlisted(common.load_spec()))
     m = dict(cs["config"]["model"], n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
              moe_d_ff=64, d_ff=64, vocab_size=1024, attn_chunk=0)
-    w = lm.make_weights(m, 3, "cpu", 8)
+    ref_lm = lm.reference_module(cs["config"])
+    w = lm.make_weights(ref_lm, m, 3, "cpu", 8)
     toks = lm.prompts(m, 3, "c", 2, 64, "cpu")
     pos = list(range(32, 64))
     kw = dict(logit_positions=pos, shards=8, prompt_len=64)
-    from bench.reference import granite_moe
-
-    ref = granite_moe.forward(w, m, toks, **kw)
-    got = granite_moe.forward(w, m, toks, quant="fp8", **kw)
+    ref = ref_lm.forward(w, m, toks, **kw)
+    got = ref_lm.forward(w, m, toks, quant="fp8", **kw)
     numbers = {"logits_rel_err": lm.rel_err(got, ref), "wire_faults": 0.0,
                "cache_rel_err": 0.0}
     correct, checks = common.judge(numbers, cs["limits"])

@@ -12,12 +12,14 @@ import os
 import re
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from bench import common, profiling, tiny, yardstick
+from bench import common, profiling, tiny
 from bench.drivers import jobs, lm
+from bench.reference import granite_moe
 
 SOURCES = sorted(p for p in common.BENCH.rglob("*.py") if not p.name.startswith("test_"))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -119,7 +121,8 @@ def test_bench_prompts_and_weights_follow_the_seed():
     m = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())["model"]
     m = dict(m, n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, moe_d_ff=8, vocab_size=300,
              n_experts=4, dtype="float32")
-    a, b = lm.make_weights(m, 5, "cpu", 2), lm.make_weights(m, 5, "cpu", 2)
+    a = lm.make_weights(granite_moe, m, 5, "cpu", 2)
+    b = lm.make_weights(granite_moe, m, 5, "cpu", 2)
     assert all(torch.equal(a[k], b[k]) for k in a)
     p = lm.prompts(m, 2**33 + 1, "x", 3, 7, "cpu")
     assert p.shape == (3, 7) and int(p.max()) < 300 and torch.equal(
@@ -127,11 +130,20 @@ def test_bench_prompts_and_weights_follow_the_seed():
 
 
 class _Trace:
-    def __init__(self, events, t0=0.0, t1=1.0):
+    """A traced window of synthetic events (name, start, end[, launch]),
+    with the port's spans (name, start, end) of one thread and its counters
+    as `program_trace.ProgramTracedWindow` holds them."""
+
+    def __init__(self, events, t0=0.0, t1=1.0, spans=(), counts=None):
         self.rec = common.Recorder()
         self.rec.add_span("prefill", 0.0, 1.0)
-        self.t0, self.t1, self.events = t0, t1, events
-        self.busy_s, self.intervals = profiling._union(events, t0, t1)
+        for name, a, b in spans:
+            self.rec.add_span(name, a, b, job=None, parent=None, thread="main")
+        self.t0, self.t1 = t0, t1
+        self.launched = [(e[0], e[1], e[2], e[3] if len(e) > 3 else e[1]) for e in events]
+        self.events = [e[:3] for e in self.launched]
+        self.busy_s, self.intervals = profiling._union(self.events, t0, t1)
+        self.sinks = SimpleNamespace(spans=[], counts=dict(counts or {}), kernel_calls={})
 
     window_s = property(lambda self: self.t1 - self.t0)
     kernel_s = profiling.TracedWindow.kernel_s
@@ -142,39 +154,91 @@ class _Trace:
 
 def _facts():
     m = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())["model"]
+    contexts = [4097 + i for i in range(10)]
     return {"k": 256, "d": 64, "shards": 8, "queue_s": [0.001, 0.002, 0.004],
             "rounds": [(2_000_000, 5), (3_000_000, 6)], "runner_misses": 0,
             "prefills": 3, "batch": 8, "tokens": 4096, "model": m, "wire_bytes": [64.68e9],
-            "span_s": 8.0, "leg_bytes": yardstick.moe_leg_wire_bytes(m, 8, 4096, 8),
-            "steps": 10, "contexts": [4097 + i for i in range(10)], "window_s": 1.0}
+            "span_s": 8.0, "prefill_flops": granite_moe.prefill_flops(m, 8, 4096),
+            "attention_flops": granite_moe.prefill_attention_flops(m, 8, 4096),
+            "legs": granite_moe.exchange_legs(m),
+            "leg_bytes": granite_moe.leg_wire_bytes(m, 8, 4096, 8),
+            "steps": 10, "contexts": contexts, "window_s": 1.0,
+            "decode_flops": sum(granite_moe.decode_step_flops(m, 8, c) for c in contexts)}
+
+
+DEFAULT_EVENTS = [("kmeans_assign_kernel", 0.1, 0.2), ("chacha20_xor_packed_lanes1", 0.25, 0.3),
+                  ("elementwise", 0.5, 0.6)]
+METRICS = sorted(p.stem for p in (common.BENCH / "metrics").glob("*.py"))
+
+
+def _input(sample=None, events=DEFAULT_EVENTS):
+    """The default synthetic input, with a metric's own `SAMPLE` merged in."""
+    sample = sample or {}
+    trace = _Trace(list(events) + list(sample.get("events", [])),
+                   spans=sample.get("spans", ()), counts=sample.get("counts"))
+    return common.Readings(trace=trace, rec=None, cs=None,
+                           facts={**_facts(), **sample.get("facts", {})})
 
 
 def test_bench_every_metric_reads_synthetic_input():
-    events = [("kmeans_assign_kernel", 0.1, 0.2), ("chacha20_xor_packed_lanes1", 0.25, 0.3),
-              ("elementwise", 0.5, 0.6)]
-    run = common.Readings(trace=_Trace(events), rec=None, cs=None, facts=_facts())
     for m in tiny.with_unlisted(common.load_spec())["per_layer"]:
-        value = common.metric_reader(m["name"])(run)
+        mod = common.metric_module(m["name"])
+        value = mod.read(_input(getattr(mod, "SAMPLE", None)))
         assert value is not None and math.isfinite(value) and value >= 0, m["name"]
-    trace = run.trace
+    trace = _input().trace
     assert abs(trace.busy_s - 0.25) < 1e-12 and trace.count() == 3
     gaps = trace.idle_gaps()
     assert gaps[0][0] == "host in prefill" and abs(gaps[0][1] - 0.4) < 1e-12
 
 
+@pytest.mark.parametrize("name", [n for n in METRICS
+                                  if hasattr(common.metric_module(n), "SAMPLE")])
+def test_bench_metric_reads_its_own_sample(name):
+    """A metric with a `SAMPLE` of its own finds nothing to read in the
+    default input, and a finite value of at least 0 once its sample is in."""
+    mod = common.metric_module(name)
+    assert mod.read(_input()) is None
+    value = mod.read(_input(mod.SAMPLE))
+    assert value is not None and math.isfinite(value) and value >= 0
+
+
 def test_bench_metric_without_its_kernel_reads_nothing():
-    run = common.Readings(trace=_Trace([("elementwise", 0.5, 0.6)]), rec=None, cs=None,
-                          facts=_facts())
-    for name in ("kmeans_assign_roofline_pct", "chacha_roofline_pct.kmeans",
-                 "chacha_roofline_pct.prefill"):
-        assert common.metric_reader(name)(run) is None
+    kernel_metrics = [n for n in METRICS if hasattr(common.metric_module(n), "KERNEL")]
+    assert {"kmeans_assign_roofline_pct", "chacha_roofline_pct.kmeans",
+            "chacha_roofline_pct.prefill", "attention_roofline_pct.prefill"} <= set(kernel_metrics)
+    for name in kernel_metrics:
+        mod = common.metric_module(name)
+        names = common.kernel_names(mod.KERNEL)
+        sample = dict(getattr(mod, "SAMPLE", {}))
+        sample["events"] = [e for e in sample.get("events", [])
+                            if not any(k in e[0] for k in names)]
+        assert mod.read(_input(sample, events=[("elementwise", 0.5, 0.6)])) is None, name
 
 
 def test_bench_yardstick_counts():
+    from bench import yardstick
+
     m = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())["model"]
-    assert yardstick.moe_leg_wire_bytes(m, 8, 4096, 8) == 1_010_565_120
+    assert granite_moe.leg_wire_bytes(m, 8, 4096, 8) == 1_010_565_120
     assert yardstick.kmeans_wire_words(256, 64, 8) == 2112
-    assert 2.1e9 < yardstick.prefill_flops(m, 8, 4096) / (8 * 4096) < 2.25e9  # ~2.16 a token
+    assert 2.1e9 < granite_moe.prefill_flops(m, 8, 4096) / (8 * 4096) < 2.25e9  # ~2.16 a token
+
+
+def test_bench_attention_roofline_counts_from_shapes():
+    """4 B H Dh T (T + 1) / 2 causal operations a layer at granite's prefill
+    (8 x 4,096, 24 heads of 64): 4.12e11; the metric holds every layer of
+    every prefill to it at the bf16 peak, and reads None without the kernel."""
+    from bench import yardstick
+
+    m = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())["model"]
+    per_layer = granite_moe.prefill_attention_flops(m, 8, 4096) / m["n_layers"]
+    assert per_layer == 4 * 8 * 24 * 64 * 4096 * 4097 / 2
+    assert 4.12e11 < per_layer < 4.13e11
+    mod = common.metric_module("attention_roofline_pct.prefill")
+    run = _input({"events": [("attention_prefill_kernel", 0.62, 0.68)]})
+    want = 100.0 * 3 * m["n_layers"] * per_layer / (yardstick.PEAK_BF16 * 0.06)
+    assert math.isclose(mod.read(run), want, rel_tol=1e-9)
+    assert mod.read(_input()) is None
 
 
 def test_bench_measured_path_fails_without_a_card():

@@ -12,10 +12,11 @@ import math
 from types import SimpleNamespace
 
 import pytest
+import torch
 
 from bench import common, profiling, program_trace, tiny
 from bench.drivers import lm
-from bench.run import run_cell
+from bench.run import run_cell, window_scope
 from bench.test_bench_guards import _facts
 from bench.test_bench_reference import _granite_model
 
@@ -122,15 +123,20 @@ def test_bench_program_readings_on_synthetic_input():
     summary = program_trace.summary(run.trace)
     assert summary["rounds"] == 2 and summary["prefills"] == 1
     assert summary["launch_thread"] == "worker"
-    assert summary["trace_counts"] == {"chacha20": 2, "kmeans_assign": 2}
+    assert summary["trace_counts"] == {"chacha20": 2, "kmeans_assign": 2,
+                                       "attention_prefill": 0}
     top = summary["top_ops_by_span"]
     assert [name for name, _ in top["engine.attention"]] == ["softmax", "elementwise"]
     assert math.isclose(dict(top["driver.replay"])["kmeans_assign_kernel"], 0.045 + 0.035)
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in
-                                  tiny.with_unlisted(common.load_spec())["per_layer"]])
+                                  tiny.with_unlisted(common.load_spec())["per_layer"]
+                                  if not getattr(common.metric_module(m["name"]), "PROGRAM",
+                                                 False)])
 def test_bench_existing_reader_reads_the_same_with_program_spans(name):
+    """A metric that reads no program span or counter reads the same with
+    the program's spans merged into the window's."""
     read = common.metric_reader(name)
     plain = read(common.Readings(trace=_trace(False), rec=None, cs=None, facts=_facts()))
     merged = read(common.Readings(trace=_trace(True), rec=None, cs=None, facts=_facts()))
@@ -181,3 +187,118 @@ def test_bench_window_with_the_program_sinks_open_on_cpu():
     assert line["end_to_end"]["prefill_tokens_per_s"] > 0
     assert 0 <= line["reference_dropped_pct"] < 100
     assert not opcount.spans._sinks and not opcount.counters._sinks
+
+
+def test_bench_window_scope_opens_the_sinks_exactly_for_program_metrics():
+    spec = tiny.with_unlisted(common.load_spec())
+    kinds = {}
+    for w in spec["workloads"]:
+        cs = common.cell_spec(w["name"], spec)
+        program = any(getattr(common.metric_module(m["name"]), "PROGRAM", False)
+                      for m in cs["per_layer"])
+        rec = common.Recorder()
+        traced = window_scope(cs, "cpu", rec, True)
+        assert type(traced) is (program_trace.ProgramTracedWindow if program
+                                else profiling.TracedWindow), w["name"]
+        assert type(window_scope(cs, "cpu", rec, False)) is profiling.Window
+        kinds[w["name"]] = program
+    assert kinds[PREFILL] and not kinds[program_trace.KMEANS] and not kinds[tiny.DECODE]
+
+
+def _cpu_traced(base):
+    """A traced window for the CPU: `base`'s window (the sinks open or not)
+    with an empty trace."""
+    class Traced(base):
+        made: list = []
+
+        def __init__(self, device, rec):
+            super().__init__(device)
+            self.rec, self.events, self.launched = rec, [], []
+            self.busy_s, self.intervals = 0.0, []
+            Traced.made.append(self)
+
+        window_s = property(lambda self: self.t1 - self.t0)
+        kernel_s = profiling.TracedWindow.kernel_s
+        count = profiling.TracedWindow.count
+        breakdown = profiling.TracedWindow.breakdown
+        idle_gaps = profiling.TracedWindow.idle_gaps
+
+    return Traced
+
+
+def test_bench_traced_run_opens_the_sinks_only_for_a_program_metric(monkeypatch):
+    """`run_cell(..., trace=True)` on the CPU, the profiler left out: the
+    prefill cell's window has the port's sinks open, and its dropped share
+    comes from the port's counters; the k-means cell's has them closed."""
+    from repro_torch.tools import opcount
+
+    program = _cpu_traced(program_trace.ProgramWindow)
+    plain = _cpu_traced(profiling.Window)
+    monkeypatch.setattr(program_trace, "ProgramTracedWindow", program)
+    monkeypatch.setattr(profiling, "TracedWindow", plain)
+    spec = tiny.with_unlisted(common.load_spec())
+    result, _ = run_cell(PREFILL, SEED, 1.0, True, device="cpu", adjust=tiny.shrink, spec=spec)
+    assert result["correct"], result["checks"]
+    assert len(program.made) == 1 and not plain.made
+    assert program.made[0].sinks.counts["moe.routed_entries"] > 0
+    assert 0 <= result["metrics"]["moe_dropped_pct.prefill"]["value"] < 100
+    assert not opcount.spans._sinks and not opcount.counters._sinks
+
+    def refused(self):
+        raise AssertionError("a sink of the program was opened")
+
+    monkeypatch.setattr(opcount.SpanRecorder, "recording", refused)
+    monkeypatch.setattr(opcount.CallCounter, "recording", refused)
+    result, _ = run_cell(program_trace.KMEANS, SEED, 1.0, True, device="cpu",
+                         adjust=tiny.shrink, spec=spec)
+    assert result["correct"], result["checks"]
+    assert len(plain.made) == 1 and len(program.made) == 1
+
+
+class _Event:
+    """A kineto event as `ProgramTracedWindow` reads it (times in us)."""
+
+    def __init__(self, name, start_us, dur_us, cid, on_device):
+        self._name, self._start, self._dur, self._cid = name, start_us, dur_us, cid
+        self._type = torch.autograd.DeviceType.CUDA if on_device else torch.autograd.DeviceType.CPU
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return self._type
+
+    def start_ns(self):
+        return self._start * 1e3
+
+    def duration_ns(self):
+        return self._dur * 1e3
+
+    def correlation_id(self):
+        return self._cid
+
+
+@pytest.mark.parametrize("marker_call_traced", [True, False])
+def test_bench_launch_times_with_and_without_the_markers_call(marker_call_traced):
+    """Launch times on the host clock: tied by the marker's runtime call
+    where the trace has it, else by the marker kernel's device start."""
+    h = 100.0  # host clock (s) at the marker's launch
+    base = 5e6  # the trace's clock (us) at that moment
+    evs = [_Event(profiling.MARKER, base + 10.0, 1000.0, 1, True),  # 10 us after its call
+           _Event("gemm", base + 2e5, 50.0, 2, True),
+           _Event("cudaLaunchKernel", base + 1e5, 5.0, 2, False)]
+    if marker_call_traced:
+        evs.append(_Event("cudaLaunchKernel", base, 5.0, 1, False))
+    w = program_trace.ProgramTracedWindow.__new__(program_trace.ProgramTracedWindow)
+    w._prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: evs)))
+    w._h_marker, w.t0, w.t1 = h, h + 0.01, h + 1.0
+    w.launched, w.marker_latency_us = [], None
+    w.rec = common.Recorder()
+    w._collect()
+    w._launches()
+    (name, start, end, launch), = w.launched
+    assert name == "gemm" and math.isclose(start, h - 10e-6 + 0.2)
+    lag = 10e-6 if marker_call_traced else 0.0  # the marker's launch latency
+    assert math.isclose(launch, h + 0.1 - 10e-6 + lag)
+    assert w.marker_latency_us == (10.0 if marker_call_traced else None)

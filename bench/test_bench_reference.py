@@ -80,10 +80,13 @@ def test_bench_granite_reference_matches_port_prefill(secure):
     cache = init_cache(cell.cfg, 2, 16, "cpu")
     got = prefill(cell.cfg, cell.model, toks, cache, mesh=cell.mesh, secure_moe=cell.secure)
     kv = {}
-    want = cell.reference(toks, [15], kv_sink=lambda i, k, v: kv.__setitem__(i, (k, v)))[:, 0]
+    want = cell.reference(toks, [15], cache_sink=kv.__setitem__)[:, 0]
     assert lm.rel_err(got[:, :cell.m["vocab_size"]], want) < 1e-5
-    for i, (k, v) in kv.items():
-        assert lm.rel_err(cache["k"][i], k) < 1e-5 and lm.rel_err(cache["v"][i], v) < 1e-5
+    assert len(kv) == cell.m["n_layers"]
+    for i, tensors in kv.items():
+        assert set(tensors) == {"k", "v"}
+        for name, want in tensors.items():
+            assert lm.rel_err(cache[name][i], want) < 1e-5
 
 
 def test_bench_granite_reference_drops_past_capacity():

@@ -10,7 +10,8 @@ TINY_MODEL = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_ff
 
 
 def shrink(cs: dict) -> None:
-    """Cut a cell's configuration and traffic (as loaded) to a tiny size."""
+    """Cut a cell's configuration and traffic (as loaded) to a tiny size: a
+    language model to `TINY_MODEL`, then to its file's own `tiny` sizes."""
     kind = cs["traffic"]["kind"]
     if kind == "jobs":
         cs["config"]["deployment"].update(k=8, d=4)
@@ -20,7 +21,7 @@ def shrink(cs: dict) -> None:
         # rounding moves its centres by a hundredth of their spread
         cs["limits"]["numbers"]["centers_step_gap"] = {"limit": 0.05}
         return
-    cs["config"]["model"].update(TINY_MODEL)
+    cs["config"]["model"].update(TINY_MODEL, **cs["config"].get("tiny", {}))
     cs["config"]["deployment"]["shards"] = 4
     cs["traffic"].update(batch=2, prompt_tokens=16)
     # float32 on both sides: the port and the reference agree to rounding

@@ -18,12 +18,26 @@ key is absent). The module gives, from the model's sizes alone:
                             the counts the cell's metrics are held to
 
 Weights are made by the benchmark, by parameter name, a few large draws:
-each stacked parameter of all layers at once, in the served dtype. Matrices
-are N(0, 1 / fan_in), fan_in the dimension a product contracts; the
-embedding (tied to the output) N(0, 0.02^2); norm scales 1 + N(0, 0.1^2).
-The port's model takes views of these stacks (`load_state_dict(assign=
-True)`); the reference gets the same stacks, made again from the seed once
-the program's are freed.
+each stacked parameter of all layers (or of a range of layers) at once, in
+the served dtype. Matrices are N(0, 1 / fan_in), fan_in the dimension a
+product contracts; the embedding (tied to the output) N(0, 0.02^2); norm
+scales 1 + N(0, 0.1^2). The port's model takes views of these stacks
+(`load_state_dict(assign=True)`); the reference gets the same stacks, made
+again from the seed once the program's are freed.
+
+A spec name says which layers it covers by the segment after `layers.`, so
+that models whose layers differ (a dense first layer before MoE layers)
+still draw stacks:
+
+  spec name               covers                  port names
+  layers.<name>           every layer, a stack    layers.<i>.<name> = w[i],
+                          of n_layers             i in 0..n_layers-1
+  layers.<i>.<name>       layer i alone           the same name
+  layers.<a>:<b>.<name>   layers a <= i < b, a    layers.<i>.<name> = w[i - a]
+                          stack of b - a
+  any other name          no layer                the same name
+
+Every port name is written once (`port_state_dict`).
 """
 
 from __future__ import annotations
@@ -58,16 +72,47 @@ def make_weights(ref, m: dict, seed: int, device, shards: int) -> dict:
 
 
 def port_state_dict(weights: dict, m: dict) -> dict:
-    """`layers.<name>` stacks split into `layers.<i>.<name>` views."""
-    sd = {}
+    """The port's state dict from the benchmark's weights:
+      layers.<name>          -> layers.<i>.<name> = w[i], i in 0..n_layers-1
+      layers.<i>.<name>      -> itself (layer i's own tensor)
+      layers.<a>:<b>.<name>  -> layers.<i>.<name> = w[i - a], a <= i < b
+      any other name         -> itself
+    The views share the stacks' storage. Raises `ValueError`, naming the
+    spec, where a stack's leading size is not the number of layers it
+    covers, a layer or range lies outside 0..n_layers or is empty, or two
+    specs write one port name."""
+    sd, origin = {}, {}
     for name, w in weights.items():
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
-            for i in range(m["n_layers"]):
-                sd[f"layers.{i}.{rest}"] = w[i]
-        else:
-            sd[name] = w
+        for key, view in _views(name, w, m["n_layers"]):
+            if key in sd:
+                raise ValueError(f"weight spec {name!r} writes {key!r}, as {origin[key]!r} does")
+            sd[key], origin[key] = view, name
     return sd
+
+
+def _views(name: str, w: torch.Tensor, n: int) -> list:
+    """(port name, tensor) pairs of one spec of a model of n layers."""
+    if not name.startswith("layers."):
+        return [(name, w)]
+    head, _, rest = name[len("layers."):].partition(".")
+    if head.isdecimal() or ":" in head:
+        a, colon, b = head.partition(":")
+        if not rest or not a.isdecimal() or colon and not b.isdecimal():
+            raise ValueError(f"weight spec {name!r}: want layers.<i>.<name> or "
+                             f"layers.<a>:<b>.<name>")
+        if not colon:  # layer a's own tensor
+            if int(a) >= n:
+                raise ValueError(f"weight spec {name!r}: no layer {a} of {n}")
+            return [(name, w)]
+        a, b = int(a), int(b)
+    else:  # a stack over every layer
+        a, b, rest = 0, n, name[len("layers."):]
+    if not 0 <= a < b <= n:
+        raise ValueError(f"weight spec {name!r}: layers {a}:{b} empty or outside 0..{n}")
+    if w.dim() == 0 or w.shape[0] != b - a:
+        raise ValueError(f"weight spec {name!r}: a stack of {b - a} layers, "
+                         f"leading size {tuple(w.shape)[:1]}")
+    return [(f"layers.{i}.{rest}", w[i - a]) for i in range(a, b)]
 
 
 def arch_config(m: dict):

@@ -155,6 +155,23 @@ def test_bench_decode_fault_is_not_correct(monkeypatch, fault):
     assert not _run(DECODE)["correct"]
 
 
+def _run_prefill_through(mp, tmp_path, module):
+    """The tiny prefill cell run with a configuration of 3 layers whose file
+    names `module` (a test-only `bench.reference.<name>`) as its reference."""
+    name = module.__name__.rsplit(".", 1)[1]
+    mp.setitem(sys.modules, module.__name__, module)
+    config = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())
+    config.update(name=name, reference_module=name, tiny={"n_layers": 3})
+    path = tmp_path / f"{name}.json"
+    path.write_text(json.dumps(config))
+    spec = tiny.with_unlisted(common.load_spec())
+    spec["configs"] = spec["configs"] + [dict(spec["configs"][-1], name=name, file=str(path))]
+    spec["workloads"] = [dict(w, config=name) if w["name"] == PREFILL else w
+                         for w in spec["workloads"]]
+    result, _ = run_cell(PREFILL, SEED, 1.0, False, device="cpu", adjust=tiny.shrink, spec=spec)
+    return result
+
+
 def test_bench_lm_driver_takes_the_configs_reference_module(monkeypatch, tmp_path):
     """A language model enters by files of its own: a configuration whose
     file names another reference module (and tiny sizes of its own) runs
@@ -172,21 +189,53 @@ def test_bench_lm_driver_takes_the_configs_reference_module(monkeypatch, tmp_pat
                 calls["n_layers"] = a[0]["n_layers"]
             return _real(*a, **k)
         setattr(alias, name, counted)
-    monkeypatch.setitem(sys.modules, alias.__name__, alias)
-    config = json.loads((common.BENCH / "configs" / "granite-moe-3b-a800m.json").read_text())
-    config.update(name="granite-alias", reference_module="granite_alias", tiny={"n_layers": 3})
-    path = tmp_path / "granite-alias.json"
-    path.write_text(json.dumps(config))
-    spec = tiny.with_unlisted(common.load_spec())
-    spec["configs"] = spec["configs"] + [dict(spec["configs"][-1], name="granite-alias",
-                                               file=str(path))]
-    spec["workloads"] = [dict(w, config="granite-alias") if w["name"] == PREFILL else w
-                         for w in spec["workloads"]]
-    result, _ = run_cell(PREFILL, SEED, 1.0, False, device="cpu", adjust=tiny.shrink, spec=spec)
+    result = _run_prefill_through(monkeypatch, tmp_path, alias)
     assert result["correct"], result["checks"]
     assert calls["weight_specs"] >= 2 and calls["forward"] >= 2  # the model's, the check's
     assert calls["exchange_legs"] >= 1 and calls["leg_wire_bytes"] >= 1
     assert calls["n_layers"] == 3
+
+
+def test_bench_lm_harness_loads_per_layer_and_range_weights(monkeypatch, tmp_path):
+    """A reference module may name one layer's tensor (`layers.0.<name>`)
+    and stack a range of layers (`layers.1:<L>.<name>`), as a model whose
+    first layer differs would: the port's strict load takes every name, and
+    the cell is correct. Here a test-only module that draws granite's layer
+    0 and layers 1..L-1 apart and joins them back for granite's forward."""
+    from bench.reference import granite_moe
+
+    split = types.ModuleType("bench.reference.granite_split")
+    seen = []
+
+    def weight_specs(m, shards):
+        n, out = m["n_layers"], {}
+        for name, (shape, kind, fan_in) in granite_moe.weight_specs(m, shards).items():
+            if not name.startswith("layers."):
+                out[name] = (shape, kind, fan_in)
+                continue
+            rest = name[len("layers."):]
+            out[f"layers.0.{rest}"] = (shape[1:], kind, fan_in)
+            out[f"layers.1:{n}.{rest}"] = ((n - 1, *shape[1:]), kind, fan_in)
+        seen.append(sorted(out))
+        return out
+
+    def forward(W, m, tokens, **kw):
+        n = m["n_layers"]
+        joined = {k: v for k, v in W.items() if not k.startswith("layers.")}
+        for k, v in W.items():
+            if k.startswith("layers.0."):
+                rest = k[len("layers.0."):]
+                joined[f"layers.{rest}"] = torch.cat([v[None], W[f"layers.1:{n}.{rest}"]])
+        return granite_moe.forward(joined, m, tokens, **kw)
+
+    split.weight_specs, split.forward = weight_specs, forward
+    for name in ("prefill_flops", "prefill_attention_flops", "decode_step_flops",
+                 "exchange_legs", "leg_wire_bytes"):
+        setattr(split, name, getattr(granite_moe, name))
+    result = _run_prefill_through(monkeypatch, tmp_path, split)
+    assert result["correct"], result["checks"]
+    assert seen and "layers.0.moe.wi" in seen[0] and "layers.1:3.moe.wi" in seen[0]
+    assert all(k.split(".")[1][0].isdigit() for k in seen[0] if k.startswith("layers."))
 
 
 def test_bench_prefill_cache_check_compares_tensors_by_name():

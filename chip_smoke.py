@@ -373,7 +373,7 @@ def phase_device(build):
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.time()
-    build.build("chacha20", "kmeans")
+    build.build("chacha20", "kmeans", "moe")
     for dh in ATTN_HEAD_DIMS:
         build.build("attention", defines={"HEAD_DIM": dh})
     sass = {n: sass_counts(build.library_path(n)) for n in ("chacha20", "kmeans")}
@@ -395,7 +395,7 @@ def phase_device(build):
           "ptxas": {**{n: [ln for ln in build.ptxas_info(n)
                            if "entry function" in ln or "registers" in ln or "smem" in ln
                            or "spill" in ln]
-                       for n in ("chacha20", "kmeans")},
+                       for n in ("chacha20", "kmeans", "moe")},
                     **{f"attention_dh{dh}": [ln for ln in build.ptxas_info(
                         "attention", {"HEAD_DIM": dh}) if "registers" in ln or "spill" in ln]
                        for dh in ATTN_HEAD_DIMS}},
@@ -546,6 +546,12 @@ def kernel_device_ms(fn, reps: int) -> float:
     return ms
 
 
+def moe_launches(mk, before=None) -> dict:
+    """The MoE kernels' launch counts, or their growth since `before`."""
+    now = {"moe_dispatch": mk.dispatch_launches, "moe_combine": mk.combine_launches}
+    return now if before is None else {name: now[name] - before[name] for name in now}
+
+
 # attention: the prefill kernel at granite-moe's and qwen2-moe's per-layer shapes
 ATTN_HEAD_DIMS = (64, 128, 16)  # the published models' head sizes, the reduced configs'
 ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 4096, 24, 8, 64),
@@ -641,6 +647,91 @@ def phase_attention(dev):
                       "rel_err_vs_f64": err, "tolerance": ATTN_F32_TOL}
     del q, k, v
     torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# moe: the prefill's dispatch and combine kernels at granite-moe's and
+# qwen2-moe's per-layer shapes (8 shards, a batch of 8 x 4,096 prompt tokens)
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen2-moe-a2.7b")
+
+
+def phase_moe(dev):
+    """The MoE prefill's two row movers against their bytes bounds, their
+    plain versions and the gradient path's code they replace in a prefill
+    (the k-fold copy through `bucket_pack`; `_combine` over the received
+    buffer with its zero row), at each model's per-layer shape, bf16, on a
+    uniform random top-k routing at the published capacity; each kernel ==
+    its plain version bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.shuffle import bucket_pack
+    from repro_torch.kernels.moe import kernel as mk
+    from repro_torch.kernels.moe.ref import moe_combine_ref, moe_dispatch_ref
+    from repro_torch.models import moe as moe_mod
+
+    out = {"phase": "moe"}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        r, k, d = LM_SHARDS, cfg.n_experts_per_tok, cfg.d_model
+        n = LM_BATCH * LM_PROMPT // r
+        e_pad = moe_mod.padded_experts(cfg, r)
+        cap = moe_mod._capacity(cfg, n, e_pad)
+        g = torch.Generator(device=dev).manual_seed(29)
+        eidx = torch.rand((r, n, cfg.n_experts), generator=g, device=dev).argsort(-1)[..., :k]
+        eidx = eidx.to(torch.int32)
+        gates = torch.rand((r, n, k), generator=g, device=dev).to(torch.bfloat16)
+        x2 = torch.randn((r, n, d), generator=g, device=dev).to(torch.bfloat16)
+        keys = moe_mod._entry_keys(n, k, dev).expand(r, -1)
+        slots, _, dropped, pos = bucket_pack(keys, eidx.reshape(r, -1), {}, e_pad, cap,
+                                             return_positions=True)
+        slots = slots.reshape(r, -1)
+        size, row = x2.element_size(), d * x2.element_size()
+
+        def old_dispatch():
+            return bucket_pack(keys, eidx.reshape(r, -1), {"x": moe_mod._entry_values(x2, k)},
+                               e_pad, cap, return_positions=True)
+
+        send = mk.moe_dispatch_cuda(x2, slots, k)
+        check(torch.equal(send.view(torch.int16), moe_dispatch_ref(x2, slots, k).view(
+            torch.int16)), f"moe: the dispatch kernel != its plain version at {arch}'s shape")
+        d_bytes = send.numel() * size + x2.numel() * size + slots.numel() * 4
+        d_ms = kernel_device_ms(lambda: mk.moe_dispatch_cuda(x2, slots, k), 5)
+        d_plain = cuda_ms(lambda: moe_dispatch_ref(x2, slots, k), 3, 1)
+        d_old = cuda_ms(old_dispatch, 3, 1)
+        del send
+        torch.cuda.empty_cache()
+
+        got = torch.randn((r, e_pad * cap, d), generator=g, device=dev).to(torch.bfloat16)
+        y = mk.moe_combine_cuda(got, pos, gates, LM_BATCH)
+        check(torch.equal(y.view(torch.int16), moe_combine_ref(got, pos, gates, LM_BATCH).view(
+            torch.int16)), f"moe: the combine kernel != its plain version at {arch}'s shape")
+        kept = r * n * k - int(dropped.sum())
+        c_bytes = (kept + r * n) * row + pos.numel() * 4 + gates.numel() * size
+        c_ms = kernel_device_ms(lambda: mk.moe_combine_cuda(got, pos, gates, LM_BATCH), 5)
+        c_plain = cuda_ms(lambda: moe_combine_ref(got, pos, gates, LM_BATCH), 3, 1)
+        c_old = cuda_ms(lambda: moe_mod._combine(moe_mod._with_zero_row(got), pos, gates, n)
+                        .reshape(r, LM_BATCH, n // LM_BATCH, d).transpose(0, 1)
+                        .reshape(LM_BATCH, -1, d), 3, 1)
+        del y, got
+        torch.cuda.empty_cache()
+        out[arch] = {
+            "shape": {"R": r, "n": n, "k": k, "E_pad": e_pad, "C": cap, "d": d,
+                      "dtype": "bfloat16"},
+            "dropped_share": int(dropped.sum()) / (r * n * k),
+            "dispatch": {"ms": d_ms, "bytes": d_bytes, "bound_ms": 1e3 * d_bytes / PEAK_BYTES_S,
+                         "bound_by": "bytes",
+                         "pct_of_bound": 100 * d_bytes / PEAK_BYTES_S / (d_ms / 1e3),
+                         "plain_ms": d_plain, "replaced_ms": d_old,
+                         "replaced": "bucket_pack of the k-fold copy (_entry_values)"},
+            "combine": {"ms": c_ms, "bytes": c_bytes, "bound_ms": 1e3 * c_bytes / PEAK_BYTES_S,
+                        "bound_by": "bytes",
+                        "pct_of_bound": 100 * c_bytes / PEAK_BYTES_S / (c_ms / 1e3),
+                        "plain_ms": c_plain, "replaced_ms": c_old,
+                        "replaced": "_combine(_with_zero_row(got)) and y's transpose"},
+            "bit_exact": True}
+        del x2, gates, eidx, slots, pos, keys
+        torch.cuda.empty_cache()
+    out["launches"] = {"moe_dispatch": mk.dispatch_launches, "moe_combine": mk.combine_launches}
     emit(out)
     return out
 
@@ -1740,6 +1831,7 @@ def phase_lm_serve(dev):
     from repro_torch.core.shuffle import record_wire_bytes
     from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.chacha20 import kernel as ck
+    from repro_torch.kernels.moe import kernel as mk
     from repro_torch.models.lm import init_params
     from repro_torch.models.moe import _capacity, padded_experts
     from repro_torch.serve.engine import decode_step, init_cache, prefill
@@ -1771,10 +1863,12 @@ def phase_lm_serve(dev):
     torch.cuda.synchronize()
     ck.launches = 0
     attn_before = ak.launches
+    moe_before = moe_launches(mk)
     with record_wire_bytes() as recs:
         lg_secure, first_s = timed(lambda: run_prefill(sec))
     launches = ck.launches
     attn_launches = ak.launches - attn_before
+    moe_prefill = moe_launches(mk, moe_before)
     if torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
         batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
         batch = 4
@@ -1784,10 +1878,14 @@ def phase_lm_serve(dev):
         gen, prompts, cache = setup(batch)
         ck.launches = 0
         attn_before = ak.launches
+        moe_before = moe_launches(mk)
         with record_wire_bytes() as recs:
             lg_secure, first_s = timed(lambda: run_prefill(sec))
         launches = ck.launches
         attn_launches = ak.launches - attn_before
+        moe_prefill = moe_launches(mk, moe_before)
+    check(moe_prefill == {"moe_dispatch": cfg.n_layers, "moe_combine": cfg.n_layers},
+          f"lm_serve: {moe_prefill} MoE kernel launches in a prefill, not {cfg.n_layers} each")
     check(launches == 4 * cfg.n_layers,
           f"lm_serve: {launches} ChaCha launches in a secure prefill, not {4 * cfg.n_layers}")
     check(attn_launches == cfg.n_layers,
@@ -1812,6 +1910,7 @@ def phase_lm_serve(dev):
     # 64 sampled decode steps from the prompt's cache
     ck.launches = 0
     attn_before = ak.launches
+    moe_before = moe_launches(mk)
     torch.cuda.synchronize()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     lg = lg_secure
@@ -1825,6 +1924,8 @@ def phase_lm_serve(dev):
     check(bool(finite), "lm_serve: non-finite decode logits")
     check(ck.launches == 0, f"lm_serve: {ck.launches} ChaCha launches in decode")
     check(ak.launches == attn_before, "lm_serve: decode launched the attention kernel")
+    check(not any(moe_launches(mk, moe_before).values()),
+          "lm_serve: decode launched the MoE kernels")
     nxt = sample(lg, cfg.vocab_size, 0.8, gen)
     kv_len = int(cache["pos"][0])
     prof, busy_ms, top = _profiled(lambda: timed(lambda: decode_step(cfg, model, cache, nxt,
@@ -1880,6 +1981,7 @@ def phase_lm_serve(dev):
            "wire_bytes_per_leg": leg_bytes,
            "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
            "attention_launches_per_prefill": attn_launches, "attention_launches_per_decode": 0,
+           "moe_launches_per_prefill": moe_prefill, "moe_launches_per_decode": 0,
            "chacha": crypt, "secure_equals_plain": True, "logits_finite": True,
            "reduced_card_vs_cpu": small, "launches": {"chacha20": launches},
            "phase_s": time.perf_counter() - t_phase}
@@ -3124,6 +3226,7 @@ def phase_lm_published(dev, phase: str) -> dict:
     from repro_torch.kernels.attention import kernel as ak
     from repro_torch.kernels.chacha20 import kernel as ck
     from repro_torch.kernels.kmeans import kernel as kk
+    from repro_torch.kernels.moe import kernel as mk
     from repro_torch.models.lm import init_params
     from repro_torch.models.moe import _capacity, padded_experts
     from repro_torch.serve.engine import decode_step, init_cache, prefill
@@ -3183,13 +3286,14 @@ def phase_lm_published(dev, phase: str) -> dict:
         return prefill(cfg, model, prompts, cache, mesh=mesh, secure_moe=secure)
 
     def first_prefill():
-        before, attn_before = ck.launches, ak.launches
+        before, attn_before, moe_before = ck.launches, ak.launches, moe_launches(mk)
         with record_wire_bytes() as recs, _routing_recorded(max(e_pad, 1), dev) as routed:
             lg, s = timed(run_prefill)
-        return lg, s, ck.launches - before, recs, routed, ak.launches - attn_before
+        return (lg, s, ck.launches - before, recs, routed, ak.launches - attn_before,
+                moe_launches(mk, moe_before))
 
     prompts, cache = setup(batch)
-    lg_first, first_s, launches, recs, routed, attn_launches = first_prefill()
+    lg_first, first_s, launches, recs, routed, attn_launches, moe_prefill = first_prefill()
     if not big and torch.cuda.max_memory_allocated() > LM_PEAK_LIMIT:
         batch_cut = {"from": batch, "peak_bytes": torch.cuda.max_memory_allocated()}
         batch = 4
@@ -3197,10 +3301,13 @@ def phase_lm_published(dev, phase: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         prompts, cache = setup(batch)
-        lg_first, first_s, launches, recs, routed, attn_launches = first_prefill()
+        lg_first, first_s, launches, recs, routed, attn_launches, moe_prefill = first_prefill()
     check(bool(torch.isfinite(lg_first[:, :vocab]).all()), f"{cfg.name}: non-finite prefill logits")
     check(attn_launches == cfg.n_layers,
           f"{cfg.name}: {attn_launches} attention launches in a prefill, not {cfg.n_layers}")
+    moe_layers = cfg.n_layers if moe else 0
+    check(moe_prefill == {"moe_dispatch": moe_layers, "moe_combine": moe_layers},
+          f"{cfg.name}: {moe_prefill} MoE kernel launches in a prefill, not {moe_layers} each")
     runs = {"plain": [], "secure": []}
     if moe:
         check(launches == 4 * cfg.n_layers,
@@ -3228,7 +3335,7 @@ def phase_lm_published(dev, phase: str) -> dict:
     prefill_s = min(runs["secure"] or runs["plain"])
 
     # 3. sampled decode steps from the prompt's cache
-    before = ck.launches
+    before, moe_before = ck.launches, moe_launches(mk)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     lg = lg_first
     torch.cuda.synchronize()
@@ -3240,6 +3347,8 @@ def phase_lm_published(dev, phase: str) -> dict:
     decode_s = time.perf_counter() - t0
     check(bool(ok), f"{cfg.name}: non-finite decode logits")
     check(ck.launches == before, f"{cfg.name}: decode launched the ChaCha kernel")
+    check(not any(moe_launches(mk, moe_before).values()),
+          f"{cfg.name}: decode launched the MoE kernels")
     kv_len = int(cache["pos"][0])
     nxt = sample(lg, vocab, 0.8, g)
     _, dec_ms, dec_busy, dec_top, dec_ops = _profile_ops(
@@ -3284,6 +3393,7 @@ def phase_lm_published(dev, phase: str) -> dict:
            "decode_bound_by": "bytes", "peak_memory_bytes": peak,
            "chacha_launches_per_prefill": launches, "chacha_launches_per_decode": 0,
            "attention_launches_per_prefill": attn_launches, "attention_launches_per_decode": 0,
+           "moe_launches_per_prefill": moe_prefill, "moe_launches_per_decode": 0,
            "launches": {"chacha20": ck.launches, "kmeans_assign": kk.launches}}
     check(kk.launches == 0, f"{phase}: the k-means kernel ran")
     if moe:
@@ -3906,6 +4016,7 @@ def _main(plan: tuple) -> int:
     smi = phase_device(_build)
     cha = phase_chacha(dev)
     att = phase_attention(dev)
+    moe_k = phase_moe(dev)
     attn_by_path = {}  # the attention kernel's launches on each path from here on
     ak.launches = 0
 
@@ -4078,6 +4189,16 @@ def _main(plan: tuple) -> int:
          "launches_per_prefill_lm_serve": lm["attention_launches_per_prefill"],
          "launches_by_path": attn_by_path,
          **{arch: att[arch] for arch in ATTN_SHAPES}},
+        {"name": "moe_dispatch_combine", "route": "cuda",
+         "source": "src/repro_torch/csrc/moe.cu",
+         "replaces": None,
+         "replaces_note": "no Pallas kernel: the JAX package's MoE is plain jnp code; they "
+                          "replace the k-fold copy, bucket_pack's value gather and scatter and "
+                          "_combine's gathers in a prefill with no gradient",
+         "bound_by": "bytes",
+         "launches_per_prefill_lm_serve": lm["moe_launches_per_prefill"],
+         "launches_per_prefill_lm_moe_shared": pub["lm_moe_shared"]["moe_launches_per_prefill"],
+         **{arch: moe_k[arch] for arch in MOE_ARCHS}},
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,13 @@ the drop count comes back as aux.
 The combine adds each token's k gate-weighted expert outputs in index
 order, starting from zero, with no atomics: the result does not depend on
 the device's scheduling, so a secure run equals a plain one bit for bit.
+
+A prefill with no gradient moves the routed rows by the routing's slot map
+(`_dispatch_rows`, `_combine_rows`): on the card two hand-written kernels
+(`kernels/moe`) write the send buffer from the token rows and read the
+received buffer in place, with no k-fold copy and no element-wise gather;
+elsewhere their plain versions. Both give the bits of the gradient path,
+which keeps the k-fold broadcast for its backward.
 The backward has no atomics either: the exchange's is the same exchange of
 the cotangents (encrypted too, `core.shuffle._exchange_backward`), each
 token's k entries are a broadcast (`_entry_values`), and the gathers by
@@ -34,6 +41,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all_to_all
+from repro_torch.kernels import kernel_calls, uses_kernel
+from repro_torch.kernels.moe.kernel import moe_combine_cuda, moe_dispatch_cuda
+from repro_torch.kernels.moe.ref import moe_combine_ref, moe_dispatch_ref, to_prompt_order
 from repro_torch.models.layers import Params, act_fn
 from repro_torch.tools.opcount import spans
 
@@ -160,6 +170,28 @@ def _with_zero_row(y):
     return torch.cat([y, torch.zeros_like(y[:, :1])], dim=1)
 
 
+def _dispatch_rows(x2, slots, k: int):
+    """The (R, S, d) send buffer by the slot map: slot s of shard r holds
+    x2[r, slots[r, s] // k], zeros for an empty slot (-1). The kernel for a
+    CUDA tensor, the plain version for any other; noted in
+    `kernel_calls["moe_dispatch"]`."""
+    kernel_calls.note("moe_dispatch")
+    if uses_kernel("auto", x2):
+        return moe_dispatch_cuda(x2, slots, k)
+    return moe_dispatch_ref(x2, slots, k)
+
+
+def _combine_rows(got, pos, gates, batch: int | None = None):
+    """`_combine(_with_zero_row(got), pos, gates, n)` without the copy, the
+    bits the same: got (R, S, d) read in place; (R, n, d), or (B, T, d) with
+    `batch`. The kernel for a CUDA tensor, the plain version for any other;
+    noted in `kernel_calls["moe_combine"]`."""
+    kernel_calls.note("moe_combine")
+    if uses_kernel("auto", got):
+        return moe_combine_cuda(got, pos, gates, batch)
+    return moe_combine_ref(got, pos, gates, batch)
+
+
 def _moe_local(cfg, params, x2, e_pad: int, capacity: int | None = None):
     """Single-domain path: pack -> batched expert FFN -> combine (no comms)."""
     n, d = x2.shape
@@ -225,13 +257,20 @@ def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
     shard's tokens b-major as the reference's per-shard `x.reshape(-1, d)`
     (which tokens a full expert drops depends on that order). Spans:
     `moe.route` (the split, routing and packing), `moe.experts` (the
-    expert FFN and its transposes); each leg is `shuffle.exchange`."""
+    expert FFN and its transposes); each leg is `shuffle.exchange`.
+
+    With no gradient the rows move by the slot map (`_dispatch_rows`,
+    `_combine_rows`; the combine, any shared expert and y's layout are the
+    span `moe.combine`); with one, by the k-fold broadcast, whose backward
+    sums each token's k cotangents by a reduction. The same bits either way.
+    """
     b, t, d = x.shape
     r = mesh.n_shards
     wi, wg, wo = _expert_shards(params, r)
     e_pad = params.wi.shape[0]
     e_loc = e_pad // r
     k = cfg.n_experts_per_tok
+    by_slot = not torch.is_grad_enabled()
     with spans.span("moe.route"):
         x2 = x.reshape(b, r, t // r, d).transpose(0, 1).reshape(r, -1, d)
         n = x2.shape[1]
@@ -240,10 +279,16 @@ def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
 
         # --- map: emit (expert_key, token_vector); shuffle: hash(key) = key --
         keys = _entry_keys(n, k, x.device)
-        _, packed, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1),
-                                              {"x": _entry_values(x2, k)}, e_pad, cap,
-                                              return_positions=True)
-        send = packed["x"].reshape(r, r, e_loc * cap, d)  # dest-shard-major
+        if by_slot:  # the keys are the entries: the packed keys are the slot map
+            slots, _, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1), {},
+                                                 e_pad, cap, return_positions=True)
+            send = _dispatch_rows(x2, slots.reshape(r, e_pad * cap), k)
+        else:
+            _, packed, dropped, pos = bucket_pack(keys.expand(r, -1), eidx.reshape(r, -1),
+                                                  {"x": _entry_values(x2, k)}, e_pad, cap,
+                                                  return_positions=True)
+            send = packed["x"]
+        send = send.reshape(r, r, e_loc * cap, d)  # dest-shard-major
     recv = keyed_all_to_all({"x": send}, mesh, secure)["x"]  # (R, src, E_loc·cap, d)
 
     # --- reduce: local experts over tokens from every source ------------------
@@ -260,11 +305,18 @@ def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
                                        counter0=secure.counter0 + (1 << 20))
     got = keyed_all_to_all({"x": back}, mesh, sec_back)["x"].reshape(r, e_pad * cap, d)
 
+    if by_slot:
+        with spans.span("moe.combine"):
+            if cfg.n_shared_experts:
+                y = _combine_rows(got, pos, gates) + _shared_expert(cfg, params.shared, x2)
+                y = to_prompt_order(y, b)
+            else:  # written straight in (B, T, d) order
+                y = _combine_rows(got, pos, gates, b)
+        return y.to(x.dtype), aux.sum() / r, dropped.sum()
     y = _combine(_with_zero_row(got), pos, gates, n)
     if cfg.n_shared_experts:
         y = y + _shared_expert(cfg, params.shared, x2)
-    y = y.reshape(r, b, t // r, d).transpose(0, 1).reshape(b, t, d)
-    return y.to(x.dtype), aux.sum() / r, dropped.sum()
+    return to_prompt_order(y, b).to(x.dtype), aux.sum() / r, dropped.sum()
 
 
 def moe_apply(cfg, params, x, *, mesh=None, secure: SecureShuffleConfig | None = None):

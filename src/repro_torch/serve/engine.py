@@ -23,12 +23,16 @@ card.
 A prefill's self-attention is `attention.prefill_self_attention`: on the
 card one launch a layer of the fused attention kernel, counted in
 `kernels.kernel_calls["attention_prefill"]` (as its plain version is on
-the CPU); a decode step's is the plain path.
+the CPU); a decode step's is the plain path. A prefill's MoE layers move
+their routed rows by the slot map (`models.moe._dispatch_rows`,
+`_combine_rows`: on the card the dispatch and combine kernels, counted in
+`kernel_calls["moe_dispatch"]` and `["moe_combine"]`).
 
 Instruments (`repro_torch.tools.opcount`): a prefill is the span
 `engine.prefill`, each self-attention in it `engine.attention` (a layer of
 the dense, MoE and VLM families tagged with its index, `layer`, which the
-MoE's `moe.route`, `shuffle.exchange` and `moe.experts` spans inherit);
+MoE's `moe.route`, `shuffle.exchange`, `moe.experts` and `moe.combine`
+spans inherit);
 every MoE layer of a prefill or a decode step adds its dropped expert
 entries to the counter `moe.dropped_entries` and its routed ones (B·T·k) to
 `moe.routed_entries`.

@@ -62,8 +62,9 @@ def test_abstract_counts_equal_a_real_cpu_run(arch, kind):
         micro = dryrun.pick_accum(get_config(arch), shape) if kind == "train" else 1
         n = over["n_layers"] * per_layer * micro
         want = {"chacha20_xor_packed": n}
-        if kind == "prefill":  # and the prefill's attention, once a layer
+        if kind == "prefill":  # and the prefill's attention, dispatch and combine, once a layer
             want["attention_prefill"] = over["n_layers"]
+            want["moe_dispatch"] = want["moe_combine"] = over["n_layers"]
         assert meta["kernel_calls"] == want
         assert meta["collectives"]["wire_bytes"] > 0
 

@@ -3676,7 +3676,7 @@ def phase_serve(dev, tokens_np, tokens, pts_np):
           f"serve path launches {launches} for rounds {rounds}")
     wrapper_launches = {"chacha20": ck.launches, "kmeans_assign": kk.launches}
     peak = torch.cuda.max_memory_allocated()
-    km_view = cache.view(spec_id=("kmeans", K, D, "auto", N_POINTS), mesh=mesh, secure=cfg)
+    km_view = cache.view(spec_id=("kmeans", K, D, N_POINTS), mesh=mesh, secure=cfg)
     km_inputs = {"p": points, "w": torch.ones((N_POINTS,), device=dev)}
     km_init = {"c": points[:K].clone(),
                "thr": torch.full((), paper_threshold(points), device=dev)}

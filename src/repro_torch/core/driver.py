@@ -107,19 +107,18 @@ import threading
 import warnings
 import weakref
 from collections import OrderedDict
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import default_hash, shuffle_round
-from repro_torch.core.shuffle import resolve_coalesce, wire_accounting
+from repro_torch.core.shuffle import resolve_coalesce
 from repro_torch.crypto.chacha import MASK32, to_word_bits
 from repro_torch.device import pinned_constants
-from repro_torch.kernels import kernel_calls
 from repro_torch.perf.model import recommendation
-from repro_torch.tools.opcount import spans
+from repro_torch.tools.opcount import RoundReport, replayable, spans, wire_accounting
 from repro_torch.tree import tree_flatten, tree_map, tree_paths, tree_unflatten
 
 class P(tuple):
@@ -383,12 +382,11 @@ def _run_chunk(spec, mesh, inputs, state, n_rounds: int, first_round: int, secur
     return state, auxes, drops, n_rounds, False
 
 
-def _with_knobs(secure, chacha_impl, coalesce):
-    """The secure config with the keystream impl and the wire layout in force,
-    the layout resolved to a bool (`shuffle.resolve_coalesce`)."""
+def _with_knobs(secure, coalesce):
+    """The secure config with its wire layout resolved to a bool
+    (`shuffle.resolve_coalesce`)."""
     if secure is None:
         return None
-    secure = secure.with_impl(chacha_impl)
     return secure.with_coalesce(resolve_coalesce(
         secure.coalesce if coalesce is None else coalesce))
 
@@ -608,10 +606,9 @@ class _Captured:
     graph: Any
     aux: Any  # (n_rounds, ...) rows per aux leaf
     dropped: Any  # (n_rounds,)
-    records: list  # the shuffle's wire records made at capture
+    reported: RoundReport  # the wire records and kernel calls made at capture
     pool_bytes: int  # bytes its capture added to the (shared) pool
     trace_info: dict  # the resolved capacity at capture
-    kernels: dict = field(default_factory=dict)  # the kernel calls made at capture
 
 
 class _GraphRunner:
@@ -713,8 +710,7 @@ class _GraphRunner:
         drop_rows = st.dropped.new_zeros((self.n_rounds,))
         before = 0 if st.pool is None else _pool_bytes(st.pool)
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, wire_accounting.isolated() as records, \
-                kernel_calls.isolated() as kernels, pinned_constants(st.constants), \
+        with _CAPTURE_LOCK, replayable() as reported, pinned_constants(st.constants), \
                 torch.cuda.graph(graph, pool=st.pool, capture_error_mode="thread_local"):
             state, aux, dropped, halt = self._body(st)
             row = (st.r - st.base).reshape(1)
@@ -726,8 +722,8 @@ class _GraphRunner:
             if halt is not None:
                 st.halt.copy_(halt)
         st.pool = graph.pool()
-        return _Captured(graph, aux_rows, drop_rows, list(records),
-                         _pool_bytes(st.pool) - before, dict(self.trace_info), dict(kernels))
+        return _Captured(graph, aux_rows, drop_rows, reported, _pool_bytes(st.pool) - before,
+                         dict(self.trace_info))
 
     def __call__(self, inputs, state, round_offset: int = 0):
         spec, mesh = self.spec, self.mesh
@@ -767,9 +763,7 @@ class _GraphRunner:
                     dropped = _zero_past(cap.dropped, n_exec)
         finally:
             budget.release(store, key, st)
-        wire_accounting.emit(cap.records * n_exec)
-        for name, calls in cap.kernels.items():
-            kernel_calls.add(name, calls * n_exec)
+        cap.reported.emit(n_exec)
         return out, aux, dropped, n_exec, halted
 
 
@@ -781,8 +775,7 @@ def _zero_past(rows, n_exec: int):
 
 
 def make_iterative_runner(spec: IterativeSpec, mesh, secure=None, n_rounds: int | None = None,
-                          *, chacha_impl: str | None = None, coalesce: bool | None = None,
-                          share_with=None):
+                          *, coalesce: bool | None = None, share_with=None):
     """The chunk runner a runner cache holds: built once, called many times.
 
     Returns runner(inputs, state, round_offset=0) -> (state, aux, dropped,
@@ -802,7 +795,7 @@ def make_iterative_runner(spec: IterativeSpec, mesh, secure=None, n_rounds: int 
     called on until its runner cache bounds them (`keep_shapes_within`,
     which `repro_torch.serve.RunnerCache` calls on the runners it builds).
     """
-    secure = _with_knobs(secure, chacha_impl, coalesce)
+    secure = _with_knobs(secure, coalesce)
     n = spec.n_rounds if n_rounds is None else int(n_rounds)
     if n < 1:
         raise ValueError(f"n_rounds must be >= 1, got {n}")
@@ -831,16 +824,15 @@ def _warn_overflow(dropped, first_round: int, info: dict | None, stacklevel: int
 
 
 def run_iterative_mapreduce(spec: IterativeSpec, inputs, init_state, mesh, secure=None,
-                            round_offset: int = 0, chacha_impl: str | None = None,
-                            coalesce: bool | None = None, warn_on_overflow: bool = True):
+                            round_offset: int = 0, coalesce: bool | None = None,
+                            warn_on_overflow: bool = True):
     """Run `spec.n_rounds` rounds from global round `round_offset`, eagerly.
 
     Returns (final_state, aux_per_round, dropped_per_round), each per-round
     tensor with a leading (n_rounds,) dim, plus (rounds_executed, halted)
     when `spec.halt_fn` is set; rounds after a halt are zero-filled.
     """
-    runner = _EagerRunner(spec, mesh, _with_knobs(secure, chacha_impl, coalesce), spec.n_rounds,
-                          coalesce)
+    runner = _EagerRunner(spec, mesh, _with_knobs(secure, coalesce), spec.n_rounds, coalesce)
     state, aux, dropped, n_exec, halted = runner(inputs, init_state, round_offset)
     if warn_on_overflow:
         _warn_overflow(dropped[:n_exec].cpu().numpy(), round_offset, runner.trace_info)
@@ -887,8 +879,7 @@ def run_until(spec: IterativeSpec, inputs, init_state, mesh, **kwargs) -> RunUnt
 
 def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=None,
                      max_rounds: int = 64, round_offset: int = 0, min_chunk: int = 1,
-                     growth="auto", max_chunk: int | None = None,
-                     chacha_impl: str | None = None, coalesce: bool | None = None,
+                     growth="auto", max_chunk: int | None = None, coalesce: bool | None = None,
                      warn_on_overflow: bool = True, runners=None, job_tag=None):
     """Cooperative (generator) form of `run_until`.
 
@@ -914,7 +905,7 @@ def run_until_chunks(spec: IterativeSpec, inputs, init_state, mesh, *, secure=No
     if min_chunk < 1:
         raise ValueError(f"min_chunk must be >= 1, got {min_chunk}")
     max_chunk = min(max_chunk or max_rounds, max_rounds)
-    secure = _with_knobs(secure, chacha_impl, coalesce)
+    secure = _with_knobs(secure, coalesce)
     if runners is None:  # the job's eager chunks share the knobs, resolved once
         eager_knobs = (resolve_coalesce(coalesce), resolve_capacity_factor())
     get_or_build = getattr(runners, "get_or_build", None)

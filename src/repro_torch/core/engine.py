@@ -72,8 +72,7 @@ def shuffle_round(mk, mv, mesh, *, hash_fn, capacity: int, secure, round_index=N
 
 
 def run_mapreduce(spec: MapReduceSpec, keys, values, mesh, secure=None,
-                  out_specs: str = "replicated", chacha_impl: str | None = None,
-                  coalesce: bool | None = None):
+                  out_specs: str = "replicated", coalesce: bool | None = None):
     """Run one round over the mesh's shards. `keys` (N,) and `values`
     (leaves (N, ...)) are global tensors split on their leading dim.
 
@@ -82,7 +81,7 @@ def run_mapreduce(spec: MapReduceSpec, keys, values, mesh, secure=None,
     Returns (output, n_dropped) -- n_dropped must be 0 for a lossless job.
     """
     if secure is not None:
-        secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
+        secure = secure.with_coalesce(coalesce)
     keys = mesh.shard(torch.as_tensor(keys, device=mesh.device))
     values = tree_map(lambda v: mesh.shard(torch.as_tensor(v, device=mesh.device)), values)
     mk, mv = spec.map_fn(keys, values)
@@ -105,8 +104,8 @@ def run_mapreduce(spec: MapReduceSpec, keys, values, mesh, secure=None,
 
 def run_mapreduce_until(spec: MapReduceSpec, keys, values, init_state, mesh, *, halt_fn,
                         fold_fn=None, max_rounds: int = 16, secure=None,
-                        chacha_impl: str | None = None, coalesce: bool | None = None,
-                        min_chunk: int = 1, growth=2, max_chunk: int | None = None):
+                        coalesce: bool | None = None, min_chunk: int = 1, growth=2,
+                        max_chunk: int | None = None):
     """Repeat a single-round MapReduce job until `halt_fn` says stop.
 
     Lifts `spec` into the iterative driver (`repro_torch.core.driver.run_until`):
@@ -136,4 +135,4 @@ def run_mapreduce_until(spec: MapReduceSpec, keys, values, init_state, mesh, *, 
                           state_specs=P())
     return run_until(ispec, {"k": keys, "v": values}, init_state, mesh, secure=secure,
                      max_rounds=max_rounds, min_chunk=min_chunk, growth=growth,
-                     max_chunk=max_chunk, chacha_impl=chacha_impl, coalesce=coalesce)
+                     max_chunk=max_chunk, coalesce=coalesce)

@@ -97,8 +97,7 @@ def make_grep_spec(patterns, chunk: int, mesh, *, max_matches: int | None = None
 
 
 def grep_count(tokens, patterns, mesh, *, secure=None, n_rounds: int = 4,
-               max_matches: int | None = None, chacha_impl: str | None = None,
-               coalesce: bool | None = None):
+               max_matches: int | None = None, coalesce: bool | None = None):
     """Count occurrences of each pattern token in `tokens` (int32, split
     over the mesh's shards).
 
@@ -121,6 +120,5 @@ def grep_count(tokens, patterns, mesh, *, secure=None, n_rounds: int = 4,
     init = {"hits": torch.zeros(patterns.shape, dtype=torch.float32, device=mesh.device),
             "cursor": torch.zeros((), dtype=torch.int64, device=mesh.device)}
     res = run_until(spec, {"t": tokens}, init, mesh, secure=secure, max_rounds=n_rounds,
-                    min_chunk=n_rounds if max_matches is None else 1,
-                    chacha_impl=chacha_impl, coalesce=coalesce)
+                    min_chunk=n_rounds if max_matches is None else 1, coalesce=coalesce)
     return res.state["hits"], res.aux["round_hits"], res.dropped

@@ -95,16 +95,15 @@ def _receive(recv, s):
     return rk, rv
 
 
-def make_kmeans_step(mesh, secure=None, impl: str = "auto", chacha_impl: str | None = None,
-                     coalesce: bool | None = None):
+def make_kmeans_step(mesh, secure=None, coalesce: bool | None = None):
     """One-round function over `mesh` (the oracle path).
 
     Returns step(points (N, D), weights (N,), centers (K, D)) ->
-    (new_centers (K, D), shift ()); `impl` selects the assignment route and
-    `chacha_impl`/`coalesce` the shuffle's keystream and wire layout.
+    (new_centers (K, D), shift ()); `coalesce` picks the shuffle's wire
+    layout.
     """
     if secure is not None:
-        secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
+        secure = secure.with_coalesce(coalesce)
     s = mesh.n_shards
 
     def step(points, weights, centers):
@@ -112,7 +111,7 @@ def make_kmeans_step(mesh, secure=None, impl: str = "auto", chacha_impl: str | N
         weights = mesh.shard(torch.as_tensor(weights, device=mesh.device))
         centers = torch.as_tensor(centers, device=mesh.device)
         k = centers.shape[0]
-        keys, partials = _assign_partials(points, weights, centers, impl)
+        keys, partials = _assign_partials(points, weights, centers, "auto")
         bk, bv, _ = bucket_pack(keys, keys % s, partials, s, -(-k // s))
         rk, rv = _receive(keyed_all_to_all({"k": bk, "v": bv}, mesh, secure), s)
         new_centers, shift = _reduce_centers(centers, rk, rv, rk >= 0, mesh=mesh)
@@ -121,7 +120,7 @@ def make_kmeans_step(mesh, secure=None, impl: str = "auto", chacha_impl: str | N
     return step
 
 
-def make_kmeans_iterative_spec(k: int, mesh, *, impl: str = "auto", n_rounds: int = 1,
+def make_kmeans_iterative_spec(k: int, mesh, *, n_rounds: int = 1,
                                threshold: float | None = None,
                                runtime_threshold: bool = False) -> IterativeSpec:
     """The per-round math of `make_kmeans_step` as a driver spec.
@@ -139,7 +138,7 @@ def make_kmeans_iterative_spec(k: int, mesh, *, impl: str = "auto", n_rounds: in
 
     if runtime_threshold:
         def map_fn(state, inputs, r):
-            return _assign_partials(inputs["p"], inputs["w"], state["c"], impl)
+            return _assign_partials(inputs["p"], inputs["w"], state["c"], "auto")
 
         def reduce_fn(state, rk, rv, valid, r):
             new_centers, shift = reduce(state["c"], rk, rv, valid)
@@ -154,7 +153,7 @@ def make_kmeans_iterative_spec(k: int, mesh, *, impl: str = "auto", n_rounds: in
                              state_specs=P())
 
     def map_fn(centers, inputs, r):
-        return _assign_partials(inputs["p"], inputs["w"], centers, impl)
+        return _assign_partials(inputs["p"], inputs["w"], centers, "auto")
 
     def reduce_fn(centers, rk, rv, valid, r):
         new_centers, shift = reduce(centers, rk, rv, valid)
@@ -210,7 +209,6 @@ class KMeansRunnerCache:
     spec: IterativeSpec
     mesh: object
     secure: SecureShuffleConfig | None
-    chacha_impl: str | None
     max_chunk: int
     threshold: float | None
     min_chunk: int = 1
@@ -218,11 +216,10 @@ class KMeansRunnerCache:
     runners: object = None
 
 
-def make_kmeans_runner(mesh, k: int, *, secure=None, impl: str = "auto",
-                       rounds_per_dispatch: int = 8, threshold: float | None = None,
-                       min_chunk: int = 1, chacha_impl: str | None = None,
+def make_kmeans_runner(mesh, k: int, *, secure=None, rounds_per_dispatch: int = 8,
+                       threshold: float | None = None, min_chunk: int = 1,
                        coalesce: bool | None = None, cache=None) -> KMeansRunnerCache:
-    """Prebuild the runner cache of `kmeans_fit` for (k, mesh, secure, impl, threshold).
+    """Prebuild the runner cache of `kmeans_fit` for (k, mesh, secure, threshold).
 
     `threshold` bakes the stopping rule into the halt (without one, the cache
     cannot serve `kmeans_fit`, which raises). `rounds_per_dispatch` caps the
@@ -234,17 +231,17 @@ def make_kmeans_runner(mesh, k: int, *, secure=None, impl: str = "auto",
     card, and the cache's cap bounds the sizes kept, the least recently used
     out first (without `cache`, the fit's own cache of `_fit_runners`).
     """
-    spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
-    runner = KMeansRunnerCache(spec=spec, mesh=mesh, secure=secure, chacha_impl=chacha_impl,
+    spec = make_kmeans_iterative_spec(k, mesh, threshold=threshold)
+    runner = KMeansRunnerCache(spec=spec, mesh=mesh, secure=secure,
                                max_chunk=max(1, rounds_per_dispatch), threshold=threshold,
                                min_chunk=max(1, min_chunk), coalesce=coalesce)
     if cache is None:
         runner.runners = _fit_runners(runner.min_chunk, runner.max_chunk)
     else:
         runner.runners = cache.view(
-            spec_id=("kmeans-fit", k, mesh.n_shards, impl,
+            spec_id=("kmeans-fit", k, mesh.n_shards,
                      None if threshold is None else float(threshold)),
-            mesh=mesh, secure=secure, chacha_impl=chacha_impl, coalesce=coalesce)
+            mesh=mesh, secure=secure, coalesce=coalesce)
     return runner
 
 
@@ -265,11 +262,9 @@ def _fit_runners(min_chunk: int, max_chunk: int):
     return RunnerCache(max_resident=len(sizes) + 1)
 
 
-def kmeans_fit(points, k: int, mesh, *, secure=None, impl: str = "auto",
-               threshold: float | None = None, max_iter: int = 200, init_centers=None,
-               init: str = "first", weights=None, rounds_per_dispatch: int = 8,
-               min_chunk: int = 1, chacha_impl: str | None = None,
-               coalesce: bool | None = None,
+def kmeans_fit(points, k: int, mesh, *, secure=None, threshold: float | None = None,
+               max_iter: int = 200, init_centers=None, init: str = "first", weights=None,
+               rounds_per_dispatch: int = 8, min_chunk: int = 1, coalesce: bool | None = None,
                runner: KMeansRunnerCache | None = None) -> KMeansResult:
     """Iterate to convergence on `mesh`. threshold=None -> paper's diag/1000 rule.
 
@@ -296,17 +291,16 @@ def kmeans_fit(points, k: int, mesh, *, secure=None, impl: str = "auto",
                 "make_kmeans_runner so the halt is baked into its cached runners")
         res = run_until(runner.spec, {"p": points, "w": weights}, centers, runner.mesh,
                         secure=runner.secure, max_rounds=max_iter, max_chunk=runner.max_chunk,
-                        min_chunk=runner.min_chunk, chacha_impl=runner.chacha_impl,
-                        coalesce=runner.coalesce, runners=runner.runners)
+                        min_chunk=runner.min_chunk, coalesce=runner.coalesce,
+                        runners=runner.runners)
     else:
         if threshold is None:
             threshold = paper_threshold(points)
-        spec = make_kmeans_iterative_spec(k, mesh, impl=impl, threshold=threshold)
+        spec = make_kmeans_iterative_spec(k, mesh, threshold=threshold)
         res = run_until(spec, {"p": points, "w": weights}, centers, mesh, secure=secure,
                         max_rounds=max_iter,
                         max_chunk=max(1, min(rounds_per_dispatch, max_iter)),
-                        min_chunk=max(1, min_chunk), chacha_impl=chacha_impl,
-                        coalesce=coalesce)
+                        min_chunk=max(1, min_chunk), coalesce=coalesce)
     centers = res.state
     shifts = [float(x) for x in res.aux["shift"]]
     return KMeansResult(centers=centers, n_iter=res.rounds_executed, center_shift=shifts,

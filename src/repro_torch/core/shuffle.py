@@ -34,11 +34,9 @@ passed to the kernel by value, or a device tensor, which the kernel reads
 from device memory (`round_dev`): a round captured in a CUDA graph then keys
 every replay's keystream from the round id the replay is given.
 
-Wire accounting (`record_wire_bytes`, `wire_accounting`) is re-entrant: open
-record contexts form a stack of independent sinks removed by identity, so
-contexts held by interleaved generators may exit in any order;
-`wire_accounting.tagged(job_id)` fills each record's `job` field and
-`suppressed()` turns recording off.
+Every shuffle call notes its wire to `wire_accounting`, which
+`repro_torch.tools.opcount` keeps with the port's other instruments
+(`record_wire_bytes` opens a sink of its records).
 
 The wire is 32-bit words held as int32 (u32 bit patterns): ciphertext never
 travels as floats, which could quiet NaN payloads.
@@ -48,7 +46,6 @@ from __future__ import annotations
 
 import functools
 import os
-from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -63,7 +60,7 @@ from repro_torch.kernels.chacha20.ops import chacha20_xor_packed, chacha20_xor_r
 from repro_torch.kernels.chacha20.table import BlockTable, block_table
 from repro_torch.mesh import VirtualMesh
 from repro_torch.perf.model import recommendation
-from repro_torch.tools.opcount import spans
+from repro_torch.tools.opcount import record_wire_bytes, spans, wire_accounting  # noqa: F401
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -113,12 +110,6 @@ class SecureShuffleConfig:
     counter0: int = 0
     impl: str = "auto"
     coalesce: Any = "auto"
-
-    def with_impl(self, impl: str | None) -> "SecureShuffleConfig":
-        """Copy with a different keystream impl (None keeps the current one)."""
-        if impl is None or impl == self.impl:
-            return self
-        return replace(self, impl=impl)
 
     def with_coalesce(self, coalesce) -> "SecureShuffleConfig":
         """Copy with a different wire layout (None keeps the current one)."""
@@ -354,127 +345,6 @@ def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
     nonce, round_dev = _round_key(cfg, round_id)
     return chacha20_xor_packed(wire, table, cfg.key_words, nonce, cfg.counter0, nonce_ids,
                                ctr_rows, impl=cfg.impl, round_dev=round_dev)
-
-
-# --- wire accounting -------------------------------------------------------------
-
-
-class _WireAccounting:
-    """Shuffle byte counter behind `record_wire_bytes`, re-entrant.
-
-    Open record contexts form a stack of independent sinks (every shuffle
-    appends one record to each); a sink is removed by identity, so contexts
-    held open by interleaved generators may exit out of stack order.
-    `suppressed()` is a nesting counter; `tagged(job_id)` gives each record
-    the innermost job id, so a sink shared by interleaved jobs splits by
-    job. The port records every executed shuffle call: a round replayed from
-    a CUDA graph re-emits the record its capture made (`emit`).
-    """
-
-    def __init__(self):
-        self._sinks: list[list] = []
-        self._tags: list = []
-        self._suppress = 0
-
-    @property
-    def enabled(self) -> bool:
-        return bool(self._sinks) and self._suppress == 0
-
-    def note(self, *, secure: bool, nbytes: int, n_leaves: int, halted: bool = False,
-             coalesced: bool = False, pad_bytes: int = 0, per_leaf=None,
-             collectives: int = 0, keystream_launches: int = 0,
-             keystream_blocks: int = 0) -> None:
-        """Append one record per shuffle call to every open sink.
-
-        Fields are those of `repro.core.shuffle._WireAccounting.note`, per
-        shard: bytes (payload), wire_bytes (= bytes + pad_bytes), per_leaf
-        payload bytes, collectives (all_to_all exchanges), keystream_launches
-        and keystream_blocks (encrypt + decrypt), job (the innermost
-        `tagged` id, or None).
-        """
-        if not self.enabled:
-            return
-        self.emit([{"secure": secure, "bytes": nbytes, "leaves": n_leaves,
-                    "halted": halted, "coalesced": coalesced,
-                    "wire_bytes": nbytes + pad_bytes, "pad_bytes": pad_bytes,
-                    "per_leaf": list(per_leaf or []), "collectives": collectives,
-                    "keystream_launches": keystream_launches,
-                    "keystream_blocks": keystream_blocks}])
-
-    def emit(self, records) -> None:
-        """Append copies of `records` to every open sink, under the current tag."""
-        if not self.enabled:
-            return
-        job = self._tags[-1] if self._tags else None
-        for sink in self._sinks:
-            sink.extend(dict(rec, per_leaf=list(rec["per_leaf"]), job=job) for rec in records)
-
-    @contextmanager
-    def suppressed(self):
-        """Record nothing inside (nestable)."""
-        self._suppress += 1
-        try:
-            yield
-        finally:
-            self._suppress -= 1
-
-    @contextmanager
-    def tagged(self, job_id):
-        """Attribute records made inside to `job_id`; None changes nothing."""
-        if job_id is None:
-            yield
-            return
-        self._tags.append(job_id)
-        try:
-            yield
-        finally:
-            self._tags.remove(job_id)
-
-    @contextmanager
-    def isolated(self):
-        """Record only into a fresh sink inside, which it yields; the open
-        sinks, tags and suppression are set aside until it exits. A round
-        captured into a CUDA graph keeps its records this way, to `emit` at
-        each replay."""
-        saved = self._sinks, self._tags, self._suppress
-        self._sinks, self._tags, self._suppress = [[]], [], 0
-        try:
-            yield self._sinks[0]
-        finally:
-            self._sinks, self._tags, self._suppress = saved
-
-    def _open(self, sink: list) -> None:
-        self._sinks.append(sink)
-
-    def _close(self, sink: list) -> None:
-        for i, s in enumerate(self._sinks):
-            if s is sink:
-                del self._sinks[i]
-                return
-
-
-wire_accounting = _WireAccounting()
-
-
-class record_wire_bytes:
-    """Context manager: one record per executed shuffle call inside the block.
-
-    The port runs rounds eagerly or replays them from a CUDA graph, and
-    either way every executed round's shuffle appends its own record (the
-    JAX package records once per traced program).
-    """
-
-    def __init__(self):
-        self.records: list[dict] = []
-
-    def __enter__(self):
-        self.records = []
-        wire_accounting._open(self.records)
-        return self.records
-
-    def __exit__(self, *exc):
-        wire_accounting._close(self.records)
-        return False
 
 
 # --- the exchange ------------------------------------------------------------------

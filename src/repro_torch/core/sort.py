@@ -200,8 +200,7 @@ def make_sample_sort_spec(mesh, capacity: int, *, axis_name: str = "data",
 def sample_sort(values, mesh, *, axis_name: str = "data", secure=None, n_rounds: int = 2,
                 capacity: int | None = None, lo: float | None = None,
                 hi: float | None = None, balance: float = 1.5,
-                chacha_impl: str | None = None, coalesce: bool | None = None,
-                shard_state="auto"):
+                coalesce: bool | None = None, shard_state="auto"):
     """Sort `values` (f32, split over the mesh's shards) by sampling sort.
 
     Returns (sorted_values numpy, counts (R,) numpy, dropped
@@ -234,8 +233,7 @@ def sample_sort(values, mesh, *, axis_name: str = "data", secure=None, n_rounds:
     # early-round overflow is the sampling working as designed; only drops
     # in the final executed round lose data
     res = run_until(spec, {"v": values}, init_state, mesh, secure=secure,
-                    max_rounds=n_rounds, chacha_impl=chacha_impl, coalesce=coalesce,
-                    warn_on_overflow=False)
+                    max_rounds=n_rounds, coalesce=coalesce, warn_on_overflow=False)
     if res.dropped.size and int(res.dropped[-1]) > 0:
         warnings.warn(
             f"sample_sort exhausted its {n_rounds}-round refinement budget "

@@ -168,17 +168,17 @@ def _mesh_token(mesh) -> tuple:
     return (mesh.n_shards, str(mesh.device))
 
 
-def _secure_token(secure: SecureShuffleConfig | None, chacha_impl, coalesce) -> tuple:
+def _secure_token(secure: SecureShuffleConfig | None, coalesce) -> tuple:
     """Hashable identity of the secure wire a runner was built against.
 
     Key, nonce and counter0 are baked into a captured graph's launches, so
     they key the cache: two sessions with different keys never share a
-    runner. impl and coalesce are resolved so 'auto' never aliases a
-    concrete choice.
+    runner. So do the keystream impl and the wire layout, resolved so
+    'auto' never aliases a concrete layout.
     """
     if secure is None:
         return ("plain", resolve_coalesce("auto" if coalesce is None else coalesce))
-    secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
+    secure = secure.with_coalesce(coalesce)
     return (np.asarray(secure.key_words, np.uint32).tobytes(),
             np.asarray(secure.nonce_words, np.uint32).tobytes(),
             int(secure.counter0), secure.impl, resolve_coalesce(secure.coalesce))
@@ -227,18 +227,18 @@ class RunnerCache:
         self.evictions = 0
 
     def view(self, *, spec_id, mesh, secure: SecureShuffleConfig | None = None,
-             chacha_impl: str | None = None, coalesce=None) -> _CacheView:
+             coalesce=None) -> _CacheView:
         """Bind a key base; returns the `get_or_build` view `run_until` takes.
 
         `spec_id` is the caller's workload identity (workload name and the
-        static shape and knob facts, e.g. ("kmeans", k, d, impl, bucket));
+        static shape and knob facts, e.g. ("kmeans", k, d, bucket));
         mesh, secure material and knobs are folded in here. The view only
         keys: the runner is built by the driver's `build` closure, which must
         come from the same arguments (`make_kmeans_runner(cache=...)` and
         `SecureJobService` make sure of it).
         """
         return _CacheView(self, (spec_id, _mesh_token(mesh),
-                                 _secure_token(secure, chacha_impl, coalesce)))
+                                 _secure_token(secure, coalesce)))
 
     def get_or_build(self, key, build):
         with self._lock:
@@ -440,21 +440,17 @@ class SecureJobService:
     """
 
     def __init__(self, mesh, *, secure: SecureShuffleConfig | None = None,
-                 chacha_impl: str | None = None, coalesce: bool | None = None,
-                 kmeans_impl: str = "auto", cache: RunnerCache | None = None,
+                 coalesce: bool | None = None, cache: RunnerCache | None = None,
                  bucket_growth=None, max_concurrent: int = 4, min_chunk: int = 1,
                  max_chunk: int = 8):
         if max_concurrent < 1:
             raise ValueError(f"max_concurrent must be >= 1, got {max_concurrent}")
         if secure is not None:
             # resolve the wire once: the cache's knob tuple is then concrete
-            secure = secure.with_impl(chacha_impl).with_coalesce(coalesce)
-            chacha_impl = None
+            secure = secure.with_coalesce(coalesce)
         self.mesh = mesh
         self.secure = secure
-        self.chacha_impl = chacha_impl
         self.coalesce = coalesce
-        self.kmeans_impl = kmeans_impl
         self.cache = cache if cache is not None else RunnerCache()
         self.bucket_growth = resolve_bucket_growth(bucket_growth)
         self.max_concurrent = max_concurrent
@@ -573,12 +569,11 @@ class SecureJobService:
     def _run_chunks(self, spec, spec_id, inputs, init_state, handle, *, max_rounds,
                     min_chunk, max_chunk):
         view = self.cache.view(spec_id=spec_id, mesh=self.mesh, secure=self.secure,
-                               chacha_impl=self.chacha_impl, coalesce=self.coalesce)
+                               coalesce=self.coalesce)
         return run_until_chunks(
             spec, inputs, init_state, self.mesh, secure=self.secure, max_rounds=max_rounds,
             round_offset=handle.round_base, min_chunk=min_chunk, max_chunk=max_chunk,
-            chacha_impl=self.chacha_impl, coalesce=self.coalesce,
-            runners=_JobRunners(view, handle), job_tag=handle.job_id)
+            coalesce=self.coalesce, runners=_JobRunners(view, handle), job_tag=handle.job_id)
 
     # -- workloads ---------------------------------------------------------
 
@@ -603,7 +598,7 @@ class SecureJobService:
         if not 1 <= k <= n:
             raise ValueError(f"k must be in [1, n={n}], got {k}")
         bucket = bucket_for(n, multiple=self.n_shards, growth=self.bucket_growth)
-        spec_id = ("kmeans", k, d, self.kmeans_impl, bucket)
+        spec_id = ("kmeans", k, d, bucket)
         min_chunk = self.min_chunk if min_chunk is None else min_chunk
         max_chunk = self.max_chunk if max_chunk is None else max_chunk
 
@@ -622,8 +617,7 @@ class SecureJobService:
             c0 = points[:k] if init_centers is None else init_centers
             init = {"c": torch.as_tensor(c0, dtype=torch.float32, device=dev),
                     "thr": torch.full((), thr, dtype=torch.float32, device=dev)}
-            spec = make_kmeans_iterative_spec(k, self.mesh, impl=self.kmeans_impl,
-                                              runtime_threshold=True)
+            spec = make_kmeans_iterative_spec(k, self.mesh, runtime_threshold=True)
             return self._run_chunks(spec, spec_id, inputs, init, handle,
                                     max_rounds=max_rounds, min_chunk=min_chunk,
                                     max_chunk=max_chunk)

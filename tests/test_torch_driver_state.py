@@ -36,6 +36,7 @@ from repro_torch.convert import secure_config, to_numpy, to_tensor
 from repro_torch.core import driver as tdrv
 from repro_torch.core import sort as ts
 from repro_torch.core.engine import MapReduceSpec, identity_hash, run_mapreduce_until
+from repro_torch.tools.opcount import RoundReport, wire_accounting
 
 P = tdrv.P
 KEY = bytes(range(32))
@@ -495,7 +496,7 @@ class _EagerGraph:
 
     def replay(self):
         st = self.st
-        with tdrv.wire_accounting.isolated():
+        with wire_accounting.isolated():
             state, aux, dropped, halt = self.runner._body(st)
         time.sleep(self.pause)
         row = (st.r - st.base).reshape(1)
@@ -517,11 +518,10 @@ def cpu_graph_runners(monkeypatch):
                                  st.aux)
         drop_rows = st.dropped.new_zeros((self.n_rounds,))
         return tdrv._Captured(_EagerGraph(self, st, aux_rows, drop_rows, 0.002), aux_rows,
-                              drop_rows, [], 0, dict(self.trace_info))
+                              drop_rows, RoundReport(), 0, dict(self.trace_info))
 
-    def make(spec, mesh, secure=None, n_rounds=None, *, chacha_impl=None, coalesce=None,
-             share_with=None):
-        secure = tdrv._with_knobs(secure, chacha_impl, coalesce)
+    def make(spec, mesh, secure=None, n_rounds=None, *, coalesce=None, share_with=None):
+        secure = tdrv._with_knobs(secure, coalesce)
         n = spec.n_rounds if n_rounds is None else int(n_rounds)
         return tdrv._GraphRunner(spec, mesh, secure, n, coalesce, share_with)
 

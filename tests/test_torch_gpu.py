@@ -1104,7 +1104,7 @@ def test_warm_served_kmeans_chunk_resolves_no_knob(cuda, card_calibration, monke
         with SecureJobService(mesh, secure=_cfg(), cache=cache, min_chunk=2, max_chunk=2,
                               bucket_growth=2.0) as svc:  # bucket n, whatever the model says
             svc.submit_kmeans(pts, k, max_rounds=4).result(timeout=600)
-        runner = cache.view(spec_id=("kmeans", k, d, "auto", n), mesh=mesh,
+        runner = cache.view(spec_id=("kmeans", k, d, n), mesh=mesh,
                             secure=_cfg()).get_or_build(2, lambda: None)
         assert isinstance(runner, driver._GraphRunner)
         points = torch.from_numpy(pts).to(cuda)

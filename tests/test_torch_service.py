@@ -350,7 +350,7 @@ def test_wire_accounting_reentrant_interleaved_generators():
     assert len({r["bytes"] for r in recs_a + recs_b}) == 1
     assert all(r["bytes"] > 0 and r["keystream_launches"] == 2 for r in recs_a + recs_b)
     assert float(res_a.state) == float(res_b.state) == 2 * 4
-    assert not wire_accounting.enabled and not wire_accounting._sinks
+    assert not wire_accounting.enabled
 
 
 def test_wire_accounting_shared_sink_splits_by_job_tag():

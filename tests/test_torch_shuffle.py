@@ -7,6 +7,8 @@ numpy seeds. Meshes of R > 1 devices run the JAX side in a subprocess with
 forced host devices (tests/conftest.py::run_in_subprocess).
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -330,7 +332,7 @@ def test_resolve_coalesce_and_config_copies():
     with pytest.raises(ValueError):
         tsh.resolve_coalesce("sideways")
     cfg = _tcfg()
-    assert cfg.with_coalesce(None) is cfg and cfg.with_impl(None) is cfg
+    assert cfg.with_coalesce(None) is cfg
     assert cfg.with_coalesce(False).coalesce is False and cfg.coalesce is True
 
 
@@ -398,7 +400,7 @@ def test_wire_accounting_sinks_are_removed_by_identity():
     tsh.keyed_all_to_all(tree, mesh)
     b.__exit__(None, None, None)
     assert (len(ra), len(rb)) == (2, 2)
-    assert not acc.enabled and not acc._sinks
+    assert not acc.enabled
 
 
 def test_wire_accounting_suppressed_tagged_isolated_and_emit():
@@ -406,8 +408,6 @@ def test_wire_accounting_suppressed_tagged_isolated_and_emit():
     tree = {"k": torch.zeros((2, 2, 3), dtype=torch.int32)}
     mesh = VirtualMesh(2, "cpu")
     with tsh.record_wire_bytes() as outer:
-        with acc.suppressed(), acc.suppressed():
-            tsh.keyed_all_to_all(tree, mesh)
         assert outer == [] and acc.enabled
         with acc.tagged("j1"), acc.tagged(None):
             tsh.keyed_all_to_all(tree, mesh)
@@ -419,7 +419,65 @@ def test_wire_accounting_suppressed_tagged_isolated_and_emit():
             acc.emit(kept)
     assert [r["job"] for r in outer] == ["j1"] * 4 + ["j2"]
     assert [r["secure"] for r in outer] == [False] + [True] * 4
-    assert outer[1] is not kept[0] and not acc._tags
+    with tsh.record_wire_bytes() as fresh:  # the tags are gone with their blocks
+        tsh.keyed_all_to_all(tree, mesh)
+    assert outer[1] is not kept[0] and [r["job"] for r in fresh] == [None]
+
+
+def test_wire_accounting_sink_outlives_another_threads_isolation():
+    """A `record_wire_bytes()` opened on one thread while another thread
+    holds `wire_accounting.isolated()` (a graph runner capturing a round)
+    takes that thread's records only, and keeps recording after the
+    isolation ends; the isolated sink takes its own thread's record alone."""
+    acc = tsh.wire_accounting
+    tree = {"k": torch.zeros((2, 2, 3), dtype=torch.int32)}
+    mesh = VirtualMesh(2, "cpu")
+    isolating, opened = threading.Event(), threading.Event()
+    kept = []
+
+    def capture():
+        with acc.isolated() as mine:
+            isolating.set()
+            if opened.wait(timeout=30):
+                tsh.keyed_all_to_all(tree, mesh, _tcfg(), round_index=1)
+        kept.extend(mine)
+
+    t = threading.Thread(target=capture)
+    t.start()
+    assert isolating.wait(timeout=30)
+    with tsh.record_wire_bytes() as recs:
+        tsh.keyed_all_to_all(tree, mesh)  # while the other thread is isolated
+        opened.set()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        tsh.keyed_all_to_all(tree, mesh)  # after its isolation ended
+    assert [r["secure"] for r in recs] == [False, False]
+    assert [r["secure"] for r in kept] == [True]
+
+
+def test_wire_accounting_job_tag_is_the_tagging_threads_own():
+    """A shuffle on one thread is not labelled with the job that another
+    thread tagged (`run_until_chunks` tags each chunk of a job)."""
+    acc = tsh.wire_accounting
+    tree = {"k": torch.zeros((2, 2, 3), dtype=torch.int32)}
+    mesh = VirtualMesh(2, "cpu")
+    tagged, untagged_done = threading.Event(), threading.Event()
+
+    def job():
+        with acc.tagged("job-A"):
+            tagged.set()
+            if untagged_done.wait(timeout=30):
+                tsh.keyed_all_to_all(tree, mesh)
+
+    with tsh.record_wire_bytes() as recs:
+        t = threading.Thread(target=job)
+        t.start()
+        assert tagged.wait(timeout=30)
+        tsh.keyed_all_to_all(tree, mesh)  # this thread tagged nothing
+        untagged_done.set()
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert [r["job"] for r in recs] == [None, "job-A"]
 
 
 # --- device constants pinned for captured rounds --------------------------------------

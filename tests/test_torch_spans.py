@@ -32,7 +32,7 @@ def test_closed_recorder_is_one_shared_no_op():
 
     assert rec.span("a") is rec.span("b", job=1) is rec.tagged(layer=0)
     assert opcount.count_ops(body) == {}  # no tensor touched, none allocated
-    assert not hasattr(rec._local, "stack")  # no attributes built, nothing on a stack
+    assert not hasattr(rec._sinks._local, "stack")  # no attributes built, nothing on a stack
 
 
 def test_span_sinks_nest_and_exit_in_any_order():

@@ -22,7 +22,12 @@ twenty-sixth line:
                  by CUDA events (`call_ms`); the round id read from device
                  memory (`round_dev`) == the by-value round bit for bit at
                  rounds 0, 1, 2**31, 2**32-1 on both designs, and its time
-                 (`kernel_ms_round_dev`)
+                 (`kernel_ms_round_dev`); the k-means wire's placed and
+                 unplaced stores against the plain version; at granite-moe's
+                 leg wire (1.01 GB) the send side's placed store
+                 (`moe_leg_placed`: each row at its receiver's row) against
+                 the plain version in receiver order, bit for bit, and the
+                 device times of both stores
   attention      the prefill's fused causal attention kernel at granite-moe's
                  per-layer shape (8 x 4,096 tokens, 24 heads on 8 KV heads,
                  Dh 64) and qwen2-moe's (16 heads on 16, Dh 128): kernel ms
@@ -293,6 +298,7 @@ import re
 import shutil
 import subprocess
 import sys
+import statistics
 import tempfile
 import time
 import warnings
@@ -512,7 +518,9 @@ def phase_chacha(dev):
         out[label] = res
 
     # the main path's packed wire (one k-means round's send buffers), card ==
-    # CPU plain version through the shuffle's own crypt
+    # CPU plain version through the shuffle's own crypt: the send side's
+    # placed store (each row at its receiver's row) and the receive side's
+    # unplaced one
     from repro_torch.core import shuffle
     tree = _round_tree(np.random.default_rng(2))
     got = {}
@@ -520,13 +528,80 @@ def phase_chacha(dev):
         t = {"k": tree["k"].to(d), "v": {n: v.to(d) for n, v in tree["v"].items()}}
         wire, layout, _ = shuffle._pack_wire_coalesced(t, lead=2)
         ids = shuffle._exchange_ids(SHARDS, SHARDS, d)
-        got[d.type] = shuffle._crypt_wire_coalesced(wire.reshape(SHARDS * SHARDS, -1), layout,
-                                                    _secure_cfg(), ids[0], ids[1], 2**32 - 1).cpu()
-    check(torch.equal(got["cuda"], got["cpu"]), "main-path packed wire: card != plain")
-    out["main_wire"] = {"rows": SHARDS * SHARDS, "words": got["cpu"].shape[1],
-                        "blocks": layout.total_blocks, "bit_exact": True}
+        for place in (SHARDS, 0):
+            got[d.type, place] = shuffle._crypt_wire_coalesced(
+                wire.reshape(SHARDS * SHARDS, -1), layout, _secure_cfg(), ids[0], ids[1],
+                2**32 - 1, place_rows=place).cpu()
+    for place in (SHARDS, 0):
+        check(torch.equal(got["cuda", place], got["cpu", place]),
+              f"main-path packed wire (place_rows {place}): card != plain")
+    check(torch.equal(got["cpu", SHARDS].reshape(SHARDS, SHARDS, -1),
+                      got["cpu", 0].reshape(SHARDS, SHARDS, -1).transpose(0, 1)),
+          "main-path packed wire: the placed store is not the receivers' order")
+    out["main_wire"] = {"rows": SHARDS * SHARDS, "words": got["cpu", 0].shape[1],
+                        "blocks": layout.total_blocks, "bit_exact": True,
+                        "placed_bit_exact": True}
+    out["moe_leg_placed"] = chacha_placed(dev)
     emit({"phase": "chacha20", "rfc8439": True, **out})
     return out
+
+
+def chacha_placed(dev, reps: int = 5, turns: int = 3) -> dict:
+    """The exchange's send-side crypt with the placed store (each row at the
+    row its receiver reads, `place_rows`) against the unplaced one, at
+    granite-moe's leg wire (one MoE layer's send buffers at 8 x 4,096 tokens
+    on 8 shards: 8 x 8 rows of 246,720 blocks, 1.01 GB bf16 of seeded random
+    bits, packed as a view). The placed output equals the plain version
+    (`chacha20_xor_packed_ref`, run on the card one sender shard at a time)
+    in the receivers' row order, bit for bit; device ms per launch of each
+    store (`kernel_device_ms`, `turns` times in alternation) and their ratio
+    of medians."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.chacha20 import ref as cr
+    from repro_torch.models.moe import _capacity, padded_experts
+
+    cfg = get_config(LM_ARCH)
+    e_pad = padded_experts(cfg, LM_SHARDS)
+    cap = _capacity(cfg, LM_BATCH * LM_PROMPT // LM_SHARDS, e_pad)
+    g = torch.Generator(device=dev).manual_seed(19)
+    send = torch.randint(-2**15, 2**15, (LM_SHARDS, LM_SHARDS, e_pad // LM_SHARDS * cap,
+                                         cfg.d_model),
+                         dtype=torch.int16, device=dev, generator=g).view(torch.bfloat16)
+    wire, layout, _ = shuffle._pack_wire_coalesced({"x": send}, lead=2)
+    check(wire.data_ptr() == send.data_ptr(), "chacha placed: the one-leaf wire was copied")
+    s, r, w_ = wire.shape
+    flat = wire.reshape(s * r, w_)
+    ids = shuffle._exchange_ids(s, r, dev)
+    cfg_ = _secure_cfg()
+
+    def crypt(place_rows):
+        return shuffle._crypt_wire_coalesced(flat, layout, cfg_, ids[0], ids[1], 0,
+                                             place_rows=place_rows)
+
+    placed = crypt(r).reshape(r, s, w_)
+    table = shuffle._layout_table(layout, dev)
+    nonce, _ = shuffle._round_key(cfg_, 0)
+    for sh in range(s):
+        rows = slice(sh * r, (sh + 1) * r)
+        want = cr.chacha20_xor_packed_ref(flat[rows], table, cfg_.key_words, nonce,
+                                          cfg_.counter0, ids[0][rows], ids[1][rows])
+        check(torch.equal(placed[:, sh], want),
+              f"chacha placed: sender shard {sh}'s rows != plain in receiver order")
+        del want
+    del placed
+    torch.cuda.empty_cache()
+    ms = {"unplaced": [], "placed": []}
+    for _ in range(turns):
+        ms["unplaced"].append(kernel_device_ms(lambda: crypt(0), reps))
+        ms["placed"].append(kernel_device_ms(lambda: crypt(r), reps))
+    del send, wire, flat
+    torch.cuda.empty_cache()
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    return {"rows": s * r, "blocks": layout.total_blocks,
+            "wire_bytes": s * r * layout.payload_words * 4, "bit_exact": True,
+            "kernel_ms_unplaced": ms["unplaced"], "kernel_ms_placed": ms["placed"],
+            "placed_over_unplaced": med["placed"] / med["unplaced"]}
 
 
 def kernel_device_ms(fn, reps: int) -> float:

@@ -24,10 +24,18 @@ keeps the per-leaf (key, nonce, counter) assignment. On the virtual mesh one
 keystream launch covers all S·R wire rows of a side: sender rows use nonce
 id = the shard and counter row = the destination; receiver rows use nonce id
 = the source and counter row = the shard (`_exchange_ids`, built once per
-(S, R, device)). A secure round is therefore 2 ChaCha launches with the
-transpose between them, and a crypt on the card is one allocation and one
-launch: no host-to-device copy and no synchronisation. The per-leaf wire is
-kept as the oracle (`SecureShuffleConfig.coalesce=False`).
+(S, R, device)). The send side is one pass: a one-leaf tree's wire is the
+leaf's own words (a view, no concatenation), and the encrypt stores sender
+row (shard, dest) at row dest·S + shard of its output (the kernel's
+`place_rows`, R), where the receiver reads it, so the exchange's transpose
+finds its buffer already in order and moves nothing. A secure round is
+therefore 2 ChaCha launches and no copy between them, and a crypt on the
+card is one allocation and one launch: no host-to-device copy and no
+synchronisation. The per-leaf wire is kept as the oracle
+(`SecureShuffleConfig.coalesce=False`); it and the plaintext wire keep the
+exchange's transpose. The placed store is the one-card `VirtualMesh`'s
+layout, whose `all_to_all` is that transpose: a mesh over a real link would
+send from sender order, and there the placed buffer would cost a copy back.
 
 The round index is a host int, XORed into nonce word 1 on the host and
 passed to the kernel by value, or a device tensor, which the kernel reads
@@ -36,7 +44,9 @@ every replay's keystream from the round id the replay is given.
 
 Every shuffle call notes its wire to `wire_accounting`, which
 `repro_torch.tools.opcount` keeps with the port's other instruments
-(`record_wire_bytes` opens a sink of its records).
+(`record_wire_bytes` opens a sink of its records). A record's `copies`
+counts the full passes over the wire besides the crypts: a pack that made
+new storage (a concatenation), and each exchange that did.
 
 The wire is 32-bit words held as int32 (u32 bit patterns): ciphertext never
 travels as floats, which could quiet NaN payloads.
@@ -278,7 +288,8 @@ def _pack_wire_coalesced(tree, lead: int = 1):
     """Bitcast + concatenate the whole pytree into ONE packed word wire.
 
     Returns (wire (…, R, payload_words) int32, layout, treedef); R, the rows
-    of one shard, is the dim just before C.
+    of one shard, is the dim just before C. A one-leaf tree's wire is the
+    leaf's word view where the leaf is contiguous and needs no pad word.
     """
     leaves, treedef = tree_flatten(tree)
     lead_shape = tuple(leaves[0].shape[:lead])
@@ -292,8 +303,11 @@ def _pack_wire_coalesced(tree, lead: int = 1):
         meta.append((row_shape, leaf.dtype, _ctr.pad_for(row_shape, leaf.dtype),
                      word_off, n_words, -(-n_words // 16)))
         word_off += n_words
-    wire = torch.cat(segs, dim=-1) if segs else torch.zeros(
-        lead_shape + (0,), dtype=WORD, device=leaves[0].device)
+    if len(segs) == 1:
+        wire = segs[0]
+    else:
+        wire = torch.cat(segs, dim=-1) if segs else torch.zeros(
+            lead_shape + (0,), dtype=WORD, device=leaves[0].device)
     return wire, _WireLayout(leaves=tuple(meta), rows=lead_shape[-1]), treedef
 
 
@@ -329,7 +343,7 @@ def _layout_table(layout: _WireLayout, device) -> BlockTable:
 
 
 def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
-                          round_id=None):
+                          round_id=None, *, place_rows: int = 0):
     """XOR an (n_rows, payload_words) packed wire with its keystream -- ONE launch.
 
     Block j of row i uses counter counter0 + ctr_base[j] + ctr_rowmul[j] ·
@@ -338,13 +352,16 @@ def _crypt_wire_coalesced(wire, layout: _WireLayout, cfg, nonce_ids, ctr_rows,
     them). With a warm layout and int32 ids already on the card (as
     `keyed_all_to_all` passes them) the call is one allocation and one
     launch. `round_id` is a host int or a device tensor (`_round_key`).
+    `place_rows` R > 0 stores row s·R + r's ciphertext at row r·(n_rows/R)
+    + s; its keystream stays row s·R + r's.
     """
     if layout.total_blocks == 0:
         return wire
     table = device_constant(_layout_table, layout, wire.device)
     nonce, round_dev = _round_key(cfg, round_id)
     return chacha20_xor_packed(wire, table, cfg.key_words, nonce, cfg.counter0, nonce_ids,
-                               ctr_rows, impl=cfg.impl, round_dev=round_dev)
+                               ctr_rows, impl=cfg.impl, round_dev=round_dev,
+                               place_rows=place_rows)
 
 
 # --- the exchange ------------------------------------------------------------------
@@ -360,6 +377,17 @@ def _exchange_ids(s: int, r: int, device):
     shard = torch.arange(s, dtype=torch.int32, device=device).repeat_interleave(r)
     row = torch.arange(r, dtype=torch.int32, device=device).repeat(s)
     return shard, row, row, shard
+
+
+def _passes(pairs) -> int:
+    """Full passes over the wire among (out, src) pairs: each `out` with
+    storage of its own, which a pass over the bytes made. Counted only while
+    the wire accounting records; compared on the host, so nothing syncs.
+    Storages are told apart by their handles: every storage on `meta` has
+    address 0."""
+    if not wire_accounting.enabled:
+        return 0
+    return sum(o.untyped_storage()._cdata != src.untyped_storage()._cdata for o, src in pairs)
 
 
 def keyed_all_to_all(tree, mesh, secure: SecureShuffleConfig | None = None,
@@ -490,39 +518,49 @@ def _exchange(tree, mesh, secure, round_index, coalesce):
     if secure is None:
         if resolve_coalesce(coalesce):
             wire, layout, treedef = _pack_wire_coalesced(tree, lead=2)
+            moved = mesh.all_to_all(wire)
             wire_accounting.note(secure=False, nbytes=layout.payload_words * r * 4,
                       n_leaves=len(layout.leaves), coalesced=True,
-                      per_leaf=[m[4] * r * 4 for m in layout.leaves], collectives=1)
-            return _unpack_wire_coalesced(mesh.all_to_all(wire), layout, treedef, lead=2)
+                      per_leaf=[m[4] * r * 4 for m in layout.leaves], collectives=1,
+                      copies=_passes([(wire, leaves[0]), (moved, wire)]))
+            return _unpack_wire_coalesced(moved, layout, treedef, lead=2)
         raw = [l.numel() // s * l.dtype.itemsize for l in leaves]
+        moved = tree_map(mesh.all_to_all, tree)
         wire_accounting.note(secure=False, nbytes=sum(raw), n_leaves=len(leaves), per_leaf=raw,
-                  collectives=len(leaves))
-        return tree_map(mesh.all_to_all, tree)
+                  collectives=len(leaves),
+                  copies=_passes(zip(tree_flatten(moved)[0], leaves)))
+        return moved
 
     send_ids, send_rows, recv_ids, recv_rows = device_constant(_exchange_ids, s, r,
                                                                leaves[0].device)
 
     if resolve_coalesce(secure.coalesce):
         wire, layout, treedef = _pack_wire_coalesced(tree, lead=2)
+        w = wire.shape[-1]
+        # the encrypt stores each row where its receiver reads it: the exchange's
+        # transpose of this view is the buffer itself
+        placed = _crypt_wire_coalesced(wire.reshape(s * r, w), layout, secure, send_ids,
+                                       send_rows, round_index, place_rows=r)
+        moved = mesh.all_to_all(placed.reshape(r, s, w).transpose(0, 1))
         per_leaf = [m[4] * r * 4 for m in layout.leaves]
         wire_accounting.note(secure=True, nbytes=sum(per_leaf), n_leaves=len(layout.leaves),
-                  coalesced=True, pad_bytes=wire.shape[-1] * r * 4 - sum(per_leaf),
+                  coalesced=True, pad_bytes=w * r * 4 - sum(per_leaf),
                   per_leaf=per_leaf, collectives=1, keystream_launches=2,
-                  keystream_blocks=2 * r * layout.total_blocks)
-        w = wire.shape[-1]
-        flat = _crypt_wire_coalesced(wire.reshape(s * r, w), layout, secure,
-                                     send_ids, send_rows, round_index)
-        flat = mesh.all_to_all(flat.reshape(s, r, w)).reshape(s * r, w)
-        flat = _crypt_wire_coalesced(flat, layout, secure, recv_ids, recv_rows, round_index)
+                  keystream_blocks=2 * r * layout.total_blocks,
+                  copies=_passes([(wire, leaves[0]), (moved, placed)]))
+        flat = _crypt_wire_coalesced(moved.reshape(s * r, w), layout, secure, recv_ids,
+                                     recv_rows, round_index)
         return _unpack_wire_coalesced(flat.reshape(s, r, w), layout, treedef, lead=2)
 
     wires, meta, treedef = _pack_wire(tree, lead=2)
+    flat = [wi.reshape(s * r, -1) for wi in wires]
+    flat = _crypt_wires(flat, meta, secure, send_ids, send_rows, round_index, r=r)
+    moved = [mesh.all_to_all(f.reshape(s, r, -1)) for f in flat]
     wire_accounting.note(secure=True, nbytes=sum(wi.numel() // s * 4 for wi in wires),
               n_leaves=len(wires), per_leaf=[wi.numel() // s * 4 for wi in wires],
               collectives=len(wires), keystream_launches=2 * len(wires),
-              keystream_blocks=2 * sum(r * -(-wi.shape[-1] // 16) for wi in wires))
-    flat = [wi.reshape(s * r, -1) for wi in wires]
-    flat = _crypt_wires(flat, meta, secure, send_ids, send_rows, round_index, r=r)
-    flat = [mesh.all_to_all(f.reshape(s, r, -1)).reshape(s * r, -1) for f in flat]
+              keystream_blocks=2 * sum(r * -(-wi.shape[-1] // 16) for wi in wires),
+              copies=_passes([*zip(wires, leaves), *zip(moved, flat)]))
+    flat = [m.reshape(s * r, -1) for m in moved]
     flat = _crypt_wires(flat, meta, secure, recv_ids, recv_rows, round_index, r=r)
     return _unpack_wire([f.reshape(s, r, -1) for f in flat], meta, treedef, lead=2)

@@ -19,7 +19,12 @@
 // copies nothing to the card. An optional device pointer to one u32 round id
 // is XORed into nonce word 1 on the card (null: nothing is XORed), so a
 // launch captured in a CUDA graph keys each replay's round from device
-// memory instead of freezing the round it was captured with.
+// memory instead of freezing the round it was captured with. An optional
+// row count R moves each row's store: the n_rows rows are an (n_rows/R, R)
+// grid, and row s·R + r lands on row r·(n_rows/R) + s of y, the grid
+// transposed (R 0: row i stays row i); row i's keystream is unchanged. The
+// shuffle's send side stores each ciphertext row where its receiver reads
+// it, so the exchange that follows moves nothing.
 //
 // What bounds it on an H100: per 64-byte block the kernel reads 64 bytes,
 // writes 64 bytes and does about 1,000 32-bit integer operations (80
@@ -87,14 +92,28 @@ __device__ __forceinline__ uint32_t pick4(int q, uint32_t v0, uint32_t v1, uint3
   return q == 0 ? v0 : q == 1 ? v1 : q == 2 ? v2 : v3;
 }
 
-// Four lanes per block: lane q of a group holds state column q.
+// Row i's place in y: with PLACED, row s·R + r of the (S, R) grid of rows
+// goes to row r·S + s (the grid transposed); else row i.
+template <bool PLACED>
+__device__ __forceinline__ unsigned place_of(unsigned i, unsigned R, unsigned S) {
+  if (!PLACED) return i;
+  const unsigned sh = i / R;
+  return (i - sh * R) * S + sh;
+}
+
+// Four lanes per block: lane q of a group holds state column q. PLACED: rows
+// are stored transposed (`place_of`). Placed and unplaced cores are separate
+// instantiations: one kernel with a runtime test ran its unplaced calls 6%
+// slower at the k-means wire and 1.6% at the MoE leg (H100 SXM, 700 W).
+template <bool PLACED>
 __global__ void __launch_bounds__(256)
 chacha20_xor_packed_lanes4(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                            const int4* __restrict__ table,
                            const uint32_t* __restrict__ nonce_ids,
                            const uint32_t* __restrict__ ctr_rows,
                            const uint32_t* __restrict__ round_id, ChachaParams p,
-                           unsigned n_rows, unsigned n_blocks, size_t row_words) {
+                           unsigned n_rows, unsigned n_blocks, size_t row_words,
+                           unsigned place_r, unsigned place_s) {
   const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
   const int q = threadIdx.x & 3;
   const unsigned total = n_rows * n_blocks;
@@ -109,7 +128,7 @@ chacha20_xor_packed_lanes4(const uint32_t* __restrict__ x, uint32_t* __restrict_
 
   const int4 e = __ldg(table + j);  // base, rowmul, packed_start, n_valid
   const uint32_t* xr = x + (size_t)i * row_words + (unsigned)e.z;
-  uint32_t* yr = y + (size_t)i * row_words + (unsigned)e.z;
+  uint32_t* yr = y + (size_t)place_of<PLACED>(i, place_r, place_s) * row_words + (unsigned)e.z;
   uint32_t m[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -147,21 +166,22 @@ chacha20_xor_packed_lanes4(const uint32_t* __restrict__ x, uint32_t* __restrict_
 // One thread per block (the first design's core, on the packed wire). VEC:
 // every block is whole (n_valid 16) at a 16-byte aligned word, so its 64
 // bytes move as four 16-byte vectors; otherwise word by word up to n_valid.
-template <bool VEC>
+// PLACED as in the four-lane core.
+template <bool VEC, bool PLACED>
 __global__ void __launch_bounds__(256)
 chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict__ y,
                            const int4* __restrict__ table,
                            const uint32_t* __restrict__ nonce_ids,
                            const uint32_t* __restrict__ ctr_rows,
                            const uint32_t* __restrict__ round_id, ChachaParams p,
-                           unsigned n_rows, unsigned n_blocks, size_t row_words) {
+                           unsigned n_rows, unsigned n_blocks, size_t row_words,
+                           unsigned place_r, unsigned place_s) {
   const unsigned item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= n_rows * n_blocks) return;
   const unsigned i = item / n_blocks;
   const unsigned j = item - i * n_blocks;
   const int4 e = __ldg(table + j);
   const uint32_t* xr = x + (size_t)i * row_words + (unsigned)e.z;
-  uint32_t* yr = y + (size_t)i * row_words + (unsigned)e.z;
 
   uint32_t m[16];
   if (VEC) {
@@ -197,6 +217,7 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
   }
 #pragma unroll
   for (int w = 0; w < 16; ++w) m[w] ^= v[w] + s[w];
+  uint32_t* yr = y + (size_t)place_of<PLACED>(i, place_r, place_s) * row_words + (unsigned)e.z;
   if (VEC) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -214,7 +235,9 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
 // x, y: distinct (n_rows, row_words) u32 buffers; table: (n_blocks, 4) i32
 // {ctr_base, ctr_rowmul, packed_start, n_valid}, whose blocks cover every
 // word of a row exactly once; nonce_ids, ctr_rows: (n_rows,) u32 on the card;
-// round_id: null, or one u32 on the card that both cores XOR into nonce word 1.
+// round_id: null, or one u32 on the card that both cores XOR into nonce word 1;
+// place_rows: 0, or R > 0 dividing n_rows: row s·R + r's output goes to row
+// r·(n_rows/R) + s of y.
 // params: 12 host words {key[8], nonce[3], counter0}, passed to the kernel by
 // value. lanes: 4 or 1. aligned: every block has n_valid 16 and a packed_start
 // that is a multiple of 4 (the one-thread core then moves 16-byte vectors).
@@ -223,8 +246,8 @@ chacha20_xor_packed_lanes1(const uint32_t* __restrict__ x, uint32_t* __restrict_
 extern "C" int chacha20_xor_packed(const void* x, void* y, const void* table,
                                    const void* nonce_ids, const void* ctr_rows,
                                    const void* round_id, const uint32_t* params,
-                                   long long n_rows, long long n_blocks, long long row_words, int lanes,
-                                   int aligned, void* stream) {
+                                   long long n_rows, long long n_blocks, long long row_words,
+                                   long long place_rows, int lanes, int aligned, void* stream) {
   const long long total = n_rows * n_blocks;
   if (total == 0) return 0;
   ChachaParams p;
@@ -233,21 +256,28 @@ extern "C" int chacha20_xor_packed(const void* x, void* y, const void* table,
   p.counter0 = params[11];
   const int threads = 256;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool placed = place_rows > 0;
+  const unsigned place_r = placed ? (unsigned)place_rows : 1u;
+  const unsigned place_s = (unsigned)(n_rows / place_r);
   if (lanes == 4) {
     const unsigned grid = (unsigned)((total * 4 + threads - 1) / threads);
-    chacha20_xor_packed_lanes4<<<grid, threads, 0, s>>>(
+    auto kernel = placed ? chacha20_xor_packed_lanes4<true> : chacha20_xor_packed_lanes4<false>;
+    kernel<<<grid, threads, 0, s>>>(
         (const uint32_t*)x, (uint32_t*)y, (const int4*)table, (const uint32_t*)nonce_ids,
         (const uint32_t*)ctr_rows, (const uint32_t*)round_id, p, (unsigned)n_rows,
-        (unsigned)n_blocks, (size_t)row_words);
+        (unsigned)n_blocks, (size_t)row_words, place_r, place_s);
   } else {
     const bool vec = aligned && (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
                      row_words % 4 == 0;
     const unsigned grid = (unsigned)((total + threads - 1) / threads);
-    auto kernel = vec ? chacha20_xor_packed_lanes1<true> : chacha20_xor_packed_lanes1<false>;
+    auto kernel = vec ? (placed ? chacha20_xor_packed_lanes1<true, true>
+                                : chacha20_xor_packed_lanes1<true, false>)
+                      : (placed ? chacha20_xor_packed_lanes1<false, true>
+                                : chacha20_xor_packed_lanes1<false, false>);
     kernel<<<grid, threads, 0, s>>>(
         (const uint32_t*)x, (uint32_t*)y, (const int4*)table, (const uint32_t*)nonce_ids,
         (const uint32_t*)ctr_rows, (const uint32_t*)round_id, p, (unsigned)n_rows,
-        (unsigned)n_blocks, (size_t)row_words);
+        (unsigned)n_blocks, (size_t)row_words, place_r, place_s);
   }
   return (int)cudaGetLastError();
 }

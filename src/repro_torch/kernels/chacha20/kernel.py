@@ -10,7 +10,9 @@ states the contract). Key, nonce and counter0 travel by value in the launch, so 
 is one launch: nothing is copied to the card and nothing synchronises. An
 optional `round_dev`, one u32 on the card, is XORed into nonce word 1 by the
 kernel: a launch captured in a CUDA graph then keys every replay's round from
-device memory.
+device memory. An optional `place_rows` R stores the rows as an (n_rows/R, R)
+grid transposed (each row's keystream unchanged): the shuffle's send side
+writes each ciphertext row where its receiver reads it.
 `launches` counts the launches this process has made.
 """
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chacha20.ref import check_place_rows
 
 launches = 0
 _fn = None
@@ -32,7 +35,7 @@ def _lib():
     global _fn
     if _fn is None:
         fn = _build.load("chacha20").chacha20_xor_packed
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -70,15 +73,18 @@ def lanes_for(n_items: int, device) -> int:
 
 
 def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_ids,
-                             ctr_rows, *, round_dev=None, lanes: int | None = None):
+                             ctr_rows, *, round_dev=None, place_rows: int = 0,
+                             lanes: int | None = None):
     """y = x ^ keystream over an (n_rows, row_words) int32 CUDA wire.
 
     Same contract as `ref.chacha20_xor_packed_ref`. `table` is a
     `table.BlockTable` on the card; `nonce_ids` and `ctr_rows` (n_rows,) are
     int32 CUDA tensors holding u32 bits; key_words (8,), nonce_words (3,)
     and counter0 are host values. `round_dev`, None or a (1,) int32 CUDA
-    tensor of u32 bits, is XORed into nonce word 1 on the card. `lanes` (4 or
-    1) overrides `lanes_for`.
+    tensor of u32 bits, is XORed into nonce word 1 on the card.
+    `place_rows` R (0, or a divisor of n_rows) stores row s·R + r's output at
+    row r·(n_rows/R) + s (`ref.place_rows_ref`); 0 keeps row i at row i.
+    `lanes` (4 or 1) overrides `lanes_for`.
     One launch on the current stream; the table must cover every word of a
     row exactly once (the output is not initialised elsewhere).
     """
@@ -102,6 +108,7 @@ def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_i
     if n_items * 4 >= 2**31:
         raise ValueError(f"wire of {n_rows} x {n_blocks} blocks is past the kernel's "
                          "2**29-block range")
+    check_place_rows(n_rows, place_rows)
     lanes = lanes_for(n_items, x.device) if lanes is None else lanes
     if lanes not in (1, 4):
         raise ValueError(f"lanes must be 1 or 4, got {lanes}")
@@ -111,8 +118,8 @@ def chacha20_xor_packed_cuda(x, table, key_words, nonce_words, counter0, nonce_i
     params = params_words(key_words, nonce_words, counter0)
     err = _lib()(x.data_ptr(), y.data_ptr(), table.words.data_ptr(), nonce_ids.data_ptr(),
                  ctr_rows.data_ptr(), None if round_dev is None else round_dev.data_ptr(),
-                 params.ctypes.data, n_rows, n_blocks, row_words,
-                 lanes, int(table.aligned), torch.cuda.current_stream(x.device).cuda_stream)
+                 params.ctypes.data, n_rows, n_blocks, row_words, place_rows, lanes,
+                 int(table.aligned), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "chacha20_xor_packed launch")
     launches += 1
     return y

@@ -39,7 +39,11 @@ from repro_torch.crypto.chacha import CONSTANT_WORDS, as_u32, to_word_bits
 from repro_torch.device import device_constant, resolve_device
 from repro_torch.kernels import kernel_calls, uses_kernel
 from repro_torch.kernels.chacha20.kernel import chacha20_xor_packed_cuda, params_words
-from repro_torch.kernels.chacha20.ref import chacha20_xor_packed_ref
+from repro_torch.kernels.chacha20.ref import (
+    check_place_rows,
+    chacha20_xor_packed_ref,
+    place_rows_ref,
+)
 from repro_torch.kernels.chacha20.table import BlockTable, block_table, host_u32, row_table
 
 
@@ -59,24 +63,26 @@ def _zero_id(device) -> torch.Tensor:
 
 _lib = torch.library.Library("repro_torch", "FRAGMENT")
 _lib.define("chacha20_xor_packed(Tensor x, Tensor table, bool aligned, int[] params, "
-            "Tensor nonce_ids, Tensor ctr_rows, Tensor? round_dev) -> Tensor")
+            "Tensor nonce_ids, Tensor ctr_rows, Tensor? round_dev, int place_rows) -> Tensor")
 
 
-def _xor_packed_cpu(x, table, aligned, params, nonce_ids, ctr_rows, round_dev):
-    return chacha20_xor_packed_ref(x, BlockTable(table, aligned), params[:8], params[8:11],
-                                   params[11], nonce_ids, ctr_rows, round_dev=round_dev)
+def _xor_packed_cpu(x, table, aligned, params, nonce_ids, ctr_rows, round_dev, place_rows):
+    return place_rows_ref(chacha20_xor_packed_ref(x, BlockTable(table, aligned), params[:8],
+                                                  params[8:11], params[11], nonce_ids,
+                                                  ctr_rows, round_dev=round_dev), place_rows)
 
 
 _lib.impl("chacha20_xor_packed", _xor_packed_cpu, "CPU")
 
 
 @torch.library.register_fake("repro_torch::chacha20_xor_packed")
-def _(x, table, aligned, params, nonce_ids, ctr_rows, round_dev):
+def _(x, table, aligned, params, nonce_ids, ctr_rows, round_dev, place_rows):
+    check_place_rows(x.shape[0], place_rows)
     return torch.empty_like(x)
 
 
 def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, ctr_rows,
-                        *, impl: str = "auto", round_dev=None):
+                        *, impl: str = "auto", round_dev=None, place_rows: int = 0):
     """XOR an (n_rows, row_words) int32 wire with the keystream its table places.
 
     Block j of row i uses nonce word 0 XOR nonce_ids[i] and counter counter0
@@ -84,7 +90,10 @@ def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, c
     n_valid[j] words onto words packed_start[j]... of row i. `round_dev`
     (None, or one round id as a tensor on x's device; an int32 one is taken
     as u32 bits, any other integer masked to 32 bits) is XORed into nonce
-    word 1 on the device.
+    word 1 on the device. `place_rows` R (0, or a divisor of n_rows) stores
+    the rows as an (n_rows/R, R) grid transposed: row s·R + r's result at row
+    r·(n_rows/R) + s, its keystream still row s·R + r's
+    (`ref.place_rows_ref`).
     """
     kernel_calls.note("chacha20_xor_packed")
     dev = x.device
@@ -93,10 +102,12 @@ def chacha20_xor_packed(x, table, key_words, nonce_words, counter0, nonce_ids, c
         round_dev = ids_on(round_dev.reshape(1), dev)
     if uses_kernel(impl, x):
         return chacha20_xor_packed_cuda(x.contiguous(), table, key_words, nonce_words,
-                                        counter0, nonce_ids, ctr_rows, round_dev=round_dev)
+                                        counter0, nonce_ids, ctr_rows, round_dev=round_dev,
+                                        place_rows=place_rows)
     params = [int(v) for v in params_words(key_words, nonce_words, counter0)]  # key, nonce, ctr
     return torch.ops.repro_torch.chacha20_xor_packed(x, table.words, table.aligned, params,
-                                                     nonce_ids, ctr_rows, round_dev)
+                                                     nonce_ids, ctr_rows, round_dev,
+                                                     place_rows)
 
 
 def make_state0(key_words, nonce_words, counter0, device=None) -> torch.Tensor:

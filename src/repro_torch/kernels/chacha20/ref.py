@@ -75,3 +75,21 @@ def chacha20_xor_packed_ref(x, table, key_words, nonce_words, counter0, nonce_id
     ks_packed = torch.zeros((n_rows, row_words), dtype=torch.int32, device=dev)
     ks_packed[:, pos] = ks[:, keep]
     return x ^ ks_packed
+
+
+def place_rows_ref(y, place_rows: int = 0):
+    """(n_rows, row_words) `y` with its rows where the kernel's placed store
+    puts them: the n_rows rows as an (n_rows/R, R) grid, transposed, so row
+    s·R + r lands on row r·(n_rows/R) + s (R = `place_rows`; 0 leaves y as
+    it is)."""
+    n_rows = y.shape[0]
+    check_place_rows(n_rows, place_rows)
+    if not place_rows:
+        return y
+    return y.reshape(n_rows // place_rows, place_rows, -1).transpose(0, 1).reshape(n_rows, -1)
+
+
+def check_place_rows(n_rows: int, place_rows: int) -> None:
+    """Refuse a `place_rows` that is negative or does not divide n_rows."""
+    if place_rows < 0 or (place_rows and n_rows % place_rows):
+        raise ValueError(f"place_rows must be 0 or divide the {n_rows} rows, got {place_rows}")

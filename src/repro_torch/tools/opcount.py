@@ -286,14 +286,16 @@ class _WireAccounting:
     def note(self, *, secure: bool, nbytes: int, n_leaves: int, halted: bool = False,
              coalesced: bool = False, pad_bytes: int = 0, per_leaf=None,
              collectives: int = 0, keystream_launches: int = 0,
-             keystream_blocks: int = 0) -> None:
+             keystream_blocks: int = 0, copies: int = 0) -> None:
         """Append one record per shuffle call to the open sinks.
 
         Fields are those of `repro.core.shuffle._WireAccounting.note`, per
         shard: bytes (payload), wire_bytes (= bytes + pad_bytes), per_leaf
         payload bytes, collectives (all_to_all exchanges), keystream_launches
         and keystream_blocks (encrypt + decrypt), job (the innermost
-        `tagged` id, or None).
+        `tagged` id, or None); and the port's own copies: the full passes
+        over the wire besides the crypts (the pack's concatenation, and each
+        exchange that returned new storage).
         """
         if not self._sinks:
             return
@@ -302,7 +304,7 @@ class _WireAccounting:
                     "wire_bytes": nbytes + pad_bytes, "pad_bytes": pad_bytes,
                     "per_leaf": list(per_leaf or []), "collectives": collectives,
                     "keystream_launches": keystream_launches,
-                    "keystream_blocks": keystream_blocks}])
+                    "keystream_blocks": keystream_blocks, "copies": copies}])
 
     def emit(self, records) -> None:
         """Append copies of `records` to the open sinks, under the current tag."""

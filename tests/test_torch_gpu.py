@@ -478,6 +478,123 @@ def test_graph_replays_at_two_rounds_give_those_rounds_ciphertext(cuda):
     assert not torch.equal(got[5], got[2**32 - 2])
 
 
+# --- the placed store: each row's output at the row its receiver reads ------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 1])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows,blocks,place", [(64, 132, 8), (9, 1000, 3), (12, 300, 4)])
+def test_chacha20_place_rows_is_the_plain_version_transposed(cuda, rows, blocks, place,
+                                                             aligned, lanes):
+    """`place_rows` moves row s·R + r's store to row r·(n_rows/R) + s and
+    nothing else, on both cores and on aligned and unaligned tables (a
+    packed wire whose leaves break the 16-word grid): the placed kernel ==
+    the plain version with its rows placed, and the unplaced kernel == the
+    plain version."""
+    from repro_torch.kernels.chacha20 import kernel
+    from repro_torch.kernels.chacha20.ref import place_rows_ref
+
+    rng = np.random.default_rng(rows + blocks + lanes + aligned)
+    if aligned:
+        x = w(rng.integers(0, 2**32, (rows, 16 * blocks), dtype=np.uint32)).to(cuda)
+        table = _rand_table(rng, blocks, cuda)
+    else:
+        from repro_torch.core import shuffle
+
+        tree = {"a": torch.as_tensor(rng.integers(0, 2**31, (rows, 1, 16 * blocks - 9))
+                                     .astype(np.int32)),
+                "b": torch.as_tensor(rng.integers(0, 256, (rows, 1, 7)).astype(np.uint8))}
+        wire, layout, _ = shuffle._pack_wire_coalesced({k: v.to(cuda) for k, v in tree.items()},
+                                                       lead=2)
+        x = wire.reshape(rows, -1)
+        table = shuffle._layout_table(layout, cuda)
+        assert not table.aligned
+    nid, crow = (w(rng.integers(0, 2**32, rows, dtype=np.uint32)).to(cuda) for _ in range(2))
+    key = rng.integers(0, 2**32, 8, dtype=np.uint32)
+    nonce = rng.integers(0, 2**32, 3, dtype=np.uint32)
+    args = (x, table, key, nonce, 2**32 - 7, nid, crow)
+    want = chacha20_xor_packed_ref(*args)
+    assert torch.equal(kernel.chacha20_xor_packed_cuda(*args, lanes=lanes), want)
+    before = kernel.launches
+    placed = kernel.chacha20_xor_packed_cuda(*args, place_rows=place, lanes=lanes)
+    assert kernel.launches == before + 1
+    assert torch.equal(placed, place_rows_ref(want, place))
+    for bad in (-1, rows + 1):
+        with pytest.raises(ValueError, match="place_rows"):
+            kernel.chacha20_xor_packed_cuda(*args, place_rows=bad, lanes=lanes)
+
+
+@pytest.mark.gpu
+def test_chacha20_place_rows_in_a_graph_with_round_dev(cuda):
+    """A placed crypt captured once, replayed at two device round ids, gives
+    each round's unplaced ciphertext in the receivers' row order."""
+    from repro_torch.core import shuffle
+
+    s = 8
+    wire, layout, _ = shuffle._pack_wire_coalesced(
+        _packed_tree(np.random.default_rng(5), s, s, 9, cuda), lead=2)
+    flat = wire.reshape(s * s, -1)
+    ids = shuffle._exchange_ids(s, s, cuda)
+    r = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0], ids[1], r, place_rows=s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0], ids[1], r,
+                                            place_rows=s)
+    for rnd in (3, 2**32 - 1):
+        r.fill_(np.uint32(rnd).view(np.int32).item())
+        graph.replay()
+        unplaced = shuffle._crypt_wire_coalesced(flat, layout, _cfg(), ids[0], ids[1], rnd)
+        assert torch.equal(out.reshape(s, s, -1), unplaced.reshape(s, s, -1).transpose(0, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("several", [False, True])
+def test_placed_exchange_is_two_launches_and_never_syncs(cuda, several):
+    """A warm secure exchange on the card: one launch a crypt, nothing
+    synchronises, the placed buffer is what the all_to_all returns, and the
+    tree equals the CPU's bit for bit."""
+    from repro_torch import VirtualMesh
+    from repro_torch.core import shuffle
+    from repro_torch.kernels.chacha20 import kernel
+
+    s = 8
+    g = torch.Generator().manual_seed(11)
+    tree = {"x": torch.randint(-2**15, 2**15, (s, s, 40, 96), dtype=torch.int16,
+                               generator=g).view(torch.bfloat16)}
+    if several:
+        tree["k"] = torch.randint(-1, 40, (s, s, 40), dtype=torch.int32, generator=g)
+    seen = []
+
+    class Tapped(VirtualMesh):
+        def all_to_all(self, x):
+            out = super().all_to_all(x)
+            seen.append(out)
+            return out
+
+    on_card = {k: v.to(cuda) for k, v in tree.items()}
+    mesh = Tapped(s, cuda)
+    shuffle.keyed_all_to_all(on_card, mesh, _cfg(), round_index=4)  # warm
+    torch.cuda.synchronize()
+    seen.clear()
+    before = kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with shuffle.record_wire_bytes() as recs:
+            got = shuffle.keyed_all_to_all(on_card, mesh, _cfg(), round_index=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernel.launches == before + 2 and len(seen) == 1
+    assert [rec["copies"] for rec in recs] == [1 if several else 0]
+    want = shuffle.keyed_all_to_all(tree, VirtualMesh(s, "cpu"), _cfg(), round_index=4)
+    for k in tree:
+        a, b = got[k].cpu(), want[k]
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
 def _runner_case(workload, mesh):
     """(spec, inputs, init) of a secure job that halts inside an 8-round chunk
     (grep: 'grep_all' runs its whole stream without a halt)."""

@@ -135,9 +135,9 @@ def test_keystream_rounds_gapless_across_chunks(monkeypatch):
     seen = []
     orig = tsh._crypt_wire_coalesced
 
-    def spy(wire, layout, cfg, nonce_ids, ctr_rows, round_id=None):
+    def spy(wire, layout, cfg, nonce_ids, ctr_rows, round_id=None, **kw):
         seen.append(round_id)
-        return orig(wire, layout, cfg, nonce_ids, ctr_rows, round_id)
+        return orig(wire, layout, cfg, nonce_ids, ctr_rows, round_id, **kw)
 
     monkeypatch.setattr(tsh, "_crypt_wire_coalesced", spy)
     pts = _points()

@@ -326,9 +326,9 @@ def test_exchange_backward_leg_is_encrypted_under_its_own_round(monkeypatch):
     seen = []
     real = tsh._crypt_wire_coalesced
 
-    def spy(wire, layout, cfg, nonce_ids, ctr_rows, round_id=None):
+    def spy(wire, layout, cfg, nonce_ids, ctr_rows, round_id=None, **kw):
         seen.append(round_id)
-        return real(wire, layout, cfg, nonce_ids, ctr_rows, round_id)
+        return real(wire, layout, cfg, nonce_ids, ctr_rows, round_id, **kw)
 
     monkeypatch.setattr(tsh, "_crypt_wire_coalesced", spy)
     out = tsh.keyed_all_to_all({"x": x}, VirtualMesh(r, "cpu"), sec, round_index=5)["x"]

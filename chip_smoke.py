@@ -380,21 +380,21 @@ def phase_device(build):
     print(smi, flush=True)
     t0 = time.time()
     build.build("chacha20", "kmeans", "moe")
-    for dh in ATTN_HEAD_DIMS:
-        build.build("attention", defines={"HEAD_DIM": dh})
+    for dqk, dv in ATTN_BUILDS:
+        build.build("attention", defines={"QK_DIM": dqk, "V_DIM": dv})
     sass = {n: sass_counts(build.library_path(n)) for n in ("chacha20", "kmeans")}
-    sass.update({f"attention_dh{dh}": sass_counts(build.library_path(
-        "attention", {"HEAD_DIM": dh})) for dh in ATTN_HEAD_DIMS})
+    sass.update({f"attention_{dqk}_{dv}": sass_counts(build.library_path(
+        "attention", {"QK_DIM": dqk, "V_DIM": dv})) for dqk, dv in ATTN_BUILDS})
     tensor_ops = {n: None if c is None else {f: v["tensor_core"] for f, v in c.items()}
                   for n, c in sass.items()}
     if tensor_ops["kmeans"] is not None:
         check(all(c > 0 for f, c in tensor_ops["kmeans"].items() if "kmeans_assign_kernel" in f),
               "the k-means assign kernel has no tensor-core instruction")
-    for dh in ATTN_HEAD_DIMS:
-        if tensor_ops[f"attention_dh{dh}"] is not None:
-            check(all(c > 0 for f, c in tensor_ops[f"attention_dh{dh}"].items()
+    for dqk, dv in ATTN_BUILDS:
+        if tensor_ops[f"attention_{dqk}_{dv}"] is not None:
+            check(all(c > 0 for f, c in tensor_ops[f"attention_{dqk}_{dv}"].items()
                       if "attention_prefill_kernel" in f),
-                  f"the bf16 attention kernel (Dh {dh}) has no tensor-core instruction")
+                  f"the bf16 attention kernel ({dqk}, {dv}) has no tensor-core instruction")
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(time.time() - t0, 3),
@@ -402,9 +402,10 @@ def phase_device(build):
                            if "entry function" in ln or "registers" in ln or "smem" in ln
                            or "spill" in ln]
                        for n in ("chacha20", "kmeans", "moe")},
-                    **{f"attention_dh{dh}": [ln for ln in build.ptxas_info(
-                        "attention", {"HEAD_DIM": dh}) if "registers" in ln or "spill" in ln]
-                       for dh in ATTN_HEAD_DIMS}},
+                    **{f"attention_{dqk}_{dv}": [ln for ln in build.ptxas_info(
+                        "attention", {"QK_DIM": dqk, "V_DIM": dv})
+                        if "registers" in ln or "spill" in ln]
+                       for dqk, dv in ATTN_BUILDS}},
           "sass_tensor_core_ops": tensor_ops,
           "sass_chacha20": sass["chacha20"]})
     return smi
@@ -627,19 +628,22 @@ def moe_launches(mk, before=None) -> dict:
     return now if before is None else {name: now[name] - before[name] for name in now}
 
 
-# attention: the prefill kernel at granite-moe's and qwen2-moe's per-layer shapes
-ATTN_HEAD_DIMS = (64, 128, 16)  # the published models' head sizes, the reduced configs'
-ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 4096, 24, 8, 64),
-               "qwen2-moe-a2.7b": (8, 4096, 16, 16, 128)}  # B, T, H, Hkv, Dh
+# attention: the prefill kernel at granite-moe's, qwen2-moe's and moonlight's
+# per-layer shapes; its (Dqk, Dv) builds: the published models' head sizes,
+# the reduced configs', latent attention's
+ATTN_BUILDS = ((64, 64), (128, 128), (16, 16), (192, 128))
+ATTN_SHAPES = {"granite-moe-3b-a800m": (8, 4096, 24, 8, 64, 64),
+               "qwen2-moe-a2.7b": (8, 4096, 16, 16, 128, 128),
+               "moonlight-16b-a3b": (4, 8192, 16, 16, 192, 128)}  # B, T, H, Hkv, Dqk, Dv
 ATTN_F32_TOL = 2**-16  # the float32 kernel against float64; a 16-bit rounding reads ~2**-9
 
 
 def attn_exact(q, k, v, dtype=torch.float32):
-    """Causal softmax(q k^T / sqrt(Dh)) v in `dtype`, one batch row at a time."""
+    """Causal softmax(q k^T / sqrt(Dqk)) v in `dtype`, one batch row at a time."""
     h, dh = q.shape[2], q.shape[3]
     kk = k.to(dtype).repeat_interleave(h // k.shape[2], dim=2)
     vv = v.to(dtype).repeat_interleave(h // k.shape[2], dim=2)
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=dtype, device=q.device)
     for i in range(q.shape[0]):
         s = torch.einsum("thd,shd->hts", q[i].to(dtype), kk[i]) / dh ** 0.5
         keep = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device).tril()
@@ -647,6 +651,14 @@ def attn_exact(q, k, v, dtype=torch.float32):
                               vv[i])
         del s, keep
     return out
+
+
+def attn_heads(cfg):
+    """(H, Hkv, Dqk, Dv) of a config's self-attention."""
+    if cfg.attention == "mla":
+        return (cfg.n_heads, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                cfg.v_head_dim)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim
 
 
 def attn_plain(cfg, q, k, v):
@@ -674,13 +686,13 @@ def phase_attention(dev):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {"phase": "attention"}
-    for arch, (b, t, h, hkv, dh) in ATTN_SHAPES.items():
+    for arch, (b, t, h, hkv, dh, dv) in ATTN_SHAPES.items():
         cfg = get_config(arch)
-        check((cfg.n_heads, cfg.n_kv_heads, cfg.head_dim) == (h, hkv, dh),
-              f"attention: {arch}'s heads are not {h}, {hkv}, {dh}")
+        check(attn_heads(cfg) == (h, hkv, dh, dv),
+              f"attention: {arch}'s heads are not {h}, {hkv}, {dh}, {dv}")
         g = torch.Generator(device=dev).manual_seed(dh)
-        q, k, v = (torch.randn((b, t, n, dh), generator=g, device=dev).to(torch.bfloat16)
-                   for n in (h, hkv, hkv))
+        q, k, v = (torch.randn((b, t, n, w), generator=g, device=dev).to(torch.bfloat16)
+                   for n, w in ((h, dh), (hkv, dh), (hkv, dv)))
         got = ak.attention_prefill_cuda(q, k, v)
         check(torch.equal(got, ak.attention_prefill_cuda(q, k, v)),
               f"attention: two runs differ at {arch}'s shape")
@@ -688,12 +700,15 @@ def phase_attention(dev):
         err = {"kernel": _rel_err(got, want), "plain": _rel_err(attn_plain(cfg, q, k, v), want)}
         check(err["kernel"] <= err["plain"], f"attention: kernel error {err} at {arch}'s shape")
         del got, want
-        flops = 4 * b * h * t * t * dh / 2
+        flops = 2 * b * h * t * t * (dh + dv) / 2
         ms = kernel_device_ms(lambda: ak.attention_prefill_cuda(q, k, v), 10)
         plain_ms = cuda_ms(lambda: attn_plain(cfg, q, k, v), 3, 1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-        out[arch] = {"shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "Dh": dh},
+        try:  # None where no backend of this PyTorch takes the widths
+            library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        except RuntimeError:
+            library_ms = None
+        out[arch] = {"shape": {"B": b, "T": t, "H": h, "Hkv": hkv, "Dh": dh, "Dv": dv},
                      "ms": ms, "bound_ms": 1e3 * flops / PEAK_BF16_S, "bound_by": "operations",
                      "pct_of_peak": 100 * flops / PEAK_BF16_S / (ms / 1e3),
                      "plain_ms": plain_ms, "plain_attn_chunk": cfg.attn_chunk,
@@ -706,7 +721,7 @@ def phase_attention(dev):
 
     arch = "granite-moe-3b-a800m"  # float32, one prompt
     cfg = get_config(arch)
-    _, t, h, hkv, dh = ATTN_SHAPES[arch]
+    _, t, h, hkv, dh, _ = ATTN_SHAPES[arch]
     g = torch.Generator(device=dev).manual_seed(dh + 1)
     q, k, v = (torch.randn((1, t, n, dh), generator=g, device=dev) for n in (h, hkv, hkv))
     got = ak.attention_prefill_cuda(q, k, v)
@@ -3254,8 +3269,8 @@ def _routing_recorded(e_pad: int, dev):
            "dropped": torch.zeros((), dtype=torch.int64, device=dev)}
     route, apply = moe_mod._route, moe_mod.moe_apply
 
-    def routed(cfg, router_w, x2, e):
-        gates, eidx, aux = route(cfg, router_w, x2, e)
+    def routed(cfg, router_w, x2, e, bias=None):
+        gates, eidx, aux = route(cfg, router_w, x2, e, bias)
         rec["per_expert"] += torch.bincount(eidx.reshape(-1).long(), minlength=e_pad)
         return gates, eidx, aux
 

@@ -1,7 +1,10 @@
 """Config registry: get_config("<arch-id>") for every assigned architecture.
 
-The port's own copy of `repro.configs`: the same ten configs, field for
-field, every one served and trained by the port.
+`ARCH_IDS` is the port's own copy of `repro.configs`: the same ten configs,
+field for field (the port's fields that the reference lacks at their
+defaults), every one served and trained by the port. `PORT_ARCH_IDS` are
+configs of the port alone, which the reference cannot build;
+`ALL_ARCH_IDS` is both.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ ARCH_IDS = [
     "chameleon-34b",
     "rwkv6-1.6b",
 ]
+PORT_ARCH_IDS = ["moonlight-16b-a3b"]
+ALL_ARCH_IDS = ARCH_IDS + PORT_ARCH_IDS
 
 _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
@@ -34,12 +39,13 @@ _MODULES = {
     "zamba2-1.2b": "zamba2_1_2b",
     "chameleon-34b": "chameleon_34b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ALL_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
 
@@ -48,4 +54,4 @@ def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_shape", "SHAPES", "shape_skips", "ArchConfig"]
+__all__ = ["ARCH_IDS", "PORT_ARCH_IDS", "ALL_ARCH_IDS", "get_config", "get_shape", "SHAPES", "shape_skips", "ArchConfig"]

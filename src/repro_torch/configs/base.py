@@ -26,6 +26,10 @@ class ArchConfig:
     moe_dispatch: str = "shuffle"  # "shuffle" (paper technique) | "dense"
     capacity_factor: float = 1.25
     secure_moe: bool = False  # encrypt expert all_to_all payloads
+    first_dense_layers: int = 0  # moe: layers [0, n) are dense MLP blocks of d_ff
+    router: str = "softmax"  # "softmax" | "sigmoid_bias" (biased choice, unbiased gates)
+    routed_scaling: float = 1.0  # the routed experts' gates times this
+    shared_expert_gate: bool = True  # False: the shared experts add ungated
 
     # SSM / hybrid
     ssm_state: int = 0
@@ -34,6 +38,11 @@ class ArchConfig:
     attn_every: int = 0  # hybrid: shared attention block every N ssm layers
 
     # attention
+    attention: str = "gqa"  # "gqa" | "mla" (multi-head latent attention)
+    kv_lora_rank: int = 0  # mla: the cached latent's width
+    qk_nope_head_dim: int = 0  # mla: a head's query/key columns without rotation
+    qk_rope_head_dim: int = 0  # mla: ... with rotation (the key's shared by all heads)
+    v_head_dim: int = 0  # mla: a head's value width
     rope_theta: float = 10000.0
     causal: bool = True
     qk_norm: bool = False
@@ -45,8 +54,10 @@ class ArchConfig:
 
     # misc
     norm: str = "rmsnorm"
+    norm_eps: float = 1e-6  # rmsnorm's
     act: str = "silu"
-    tie_embeddings: bool = False
+    tie_embeddings: bool = False  # not read: the output is the embedding unless separate_head
+    separate_head: bool = False  # an output head of its own (`head.table`)
     dtype: str = "bfloat16"
     remat: str = "sqrt"  # sqrt (two-level) | full | dots | none
     # perf knobs (hillclimbed in EXPERIMENTS.md §Perf)
@@ -61,6 +72,11 @@ class ArchConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def n_moe_layers(self) -> int:
+        """Layers of a moe model that are MoE blocks (after the dense ones)."""
+        return self.n_layers - self.first_dense_layers if self.family == "moe" else 0
 
     @property
     def padded_vocab(self) -> int:
@@ -97,6 +113,11 @@ class ArchConfig:
             attn_every=2 if self.attn_every else 0,
             n_encoder_layers=min(self.n_encoder_layers, 2),
             encoder_seq=min(self.encoder_seq, 32) if self.encoder_seq else 0,
+            first_dense_layers=min(self.first_dense_layers, 1),
+            kv_lora_rank=min(self.kv_lora_rank, 32),
+            qk_nope_head_dim=min(self.qk_nope_head_dim, 16),
+            qk_rope_head_dim=min(self.qk_rope_head_dim, 8),
+            v_head_dim=min(self.v_head_dim, 16),
             dtype="float32",
         )
 

@@ -11,11 +11,13 @@
 //
 // For each query row t of head h (key/value head h / G, G = H / Hkv), over
 // positions 0..T-1:
-//   s[j]  = (q[t] . k[j]) / sqrt(Dh)        for j <= t
+//   s[j]  = (q[t] . k[j]) / sqrt(Dqk)       for j <= t
 //   ctx[t] = sum_j softmax(s)[j] v[j]
-// Inputs q (B, T, H, Dh), k and v (B, T, Hkv, Dh), read through their
-// strides as the projections leave them (Dh contiguous); the context is
-// written as (B, T, H, Dh) in q's dtype. Two kernels, one a dtype:
+// Inputs q (B, T, H, Dqk), k (B, T, Hkv, Dqk) and v (B, T, Hkv, Dv), read
+// through their strides as the projections leave them (the last dimension
+// contiguous); the context is written as (B, T, H, Dv) in q's dtype. Dqk =
+// Dv = Dh for grouped-query attention; latent attention (MLA) has Dqk 192
+// (128 + a 64-wide rotary part) beside Dv 128. Two kernels, one a dtype:
 //
 // bf16, attention_prefill_kernel (the serving path). What bounds it on an
 // H100: the causal products are 4 B H T^2 Dh / 2 operations (4.12e11 at
@@ -25,9 +27,10 @@
 // path is bound by bytes instead: the scores never need to leave the SM.
 // Design (the flash-attention scheme, mma.sync m16n8k16 on the tensor cores):
 //  * A CTA of 4 warps takes BM query rows of one (batch, head): 128 rows
-//    (32 a warp, two m16 tiles) for Dh <= 64, 64 rows (16 a warp) above, so
-//    the float32 accumulators fit the registers. Its Q tile is staged
-//    through shared memory once and kept in registers as A fragments.
+//    (32 a warp, two m16 tiles) for Dqk and Dv <= 64, 64 rows (16 a warp)
+//    above, so the float32 accumulators fit the registers. Its Q tile is
+//    staged through shared memory once and kept in registers as A fragments
+//    (at 192/128: 48 registers of Q, 64 of the context, 32 of scores).
 //  * It walks key tiles of BN = 64 in order, up to the block's last row;
 //    only tiles that reach past the block's first row are masked. Tiles
 //    above the diagonal are never visited: their softmax weights are
@@ -41,7 +44,7 @@
 //    bf16 inputs); the online softmax keeps each row's running max and sum
 //    in float32, rescaling the float32 context accumulator when a max
 //    moves (a warp skips it when none of its rows' maxima moved);
-//    exponentials are base 2, log2(e) / sqrt(Dh) folded into their
+//    exponentials are base 2, log2(e) / sqrt(Dqk) folded into their
 //    multiply-add. P is rounded to bf16 for the P V product (as the plain path
 //    rounds its weights to q's dtype) and the context divided by the row
 //    sum once, at the end, then staged through shared memory and written
@@ -54,14 +57,16 @@
 // 32 rows (padded to an odd stride, so a warp's reads of 8 rows of Q or 4 of
 // K fall in distinct banks) and V tiles in shared memory; each lane scores
 // its row against 8 keys, the running max and sum (expf, scaled by a
-// division by sqrt(Dh) as the plain path's) reduced over the row's 4 lanes
+// division by sqrt(Dqk) as the plain path's) reduced over the row's 4 lanes
 // by shuffles, and the weights handed to the P V product by shuffles too; a
-// lane keeps Dh / 4 of the row's context.
+// lane keeps Dv / 4 of the row's context.
 //
 // Both: the grid is (B H, T / BM) with the query blocks in reverse, so the
 // longest rows of the causal triangle start first and the short ones fill
-// the tail; neighbouring CTAs share a key/value head in L2. One head size a
-// build (-DHEAD_DIM=16..128, a multiple of 16). The kernels allocate
+// the tail; neighbouring CTAs share a key/value head in L2. One (Dqk, Dv)
+// pair a build (-DQK_DIM=16..192 and -DV_DIM=16..128, multiples of 16, Dv <=
+// Dqk; a (64, 64) build is the former one-head-size build, constant for
+// constant). The kernels allocate
 // nothing, run on the caller's stream, and are deterministic (no atomics):
 // two runs give the same bits.
 
@@ -71,32 +76,36 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#ifndef HEAD_DIM
-#error "build with -DHEAD_DIM=<16..128, a multiple of 16>"
+#if !defined(QK_DIM) || !defined(V_DIM)
+#error "build with -DQK_DIM=<16..192> -DV_DIM=<16..128>, multiples of 16"
 #endif
 
 namespace {
 
-constexpr int DH = HEAD_DIM;
-static_assert(DH % 16 == 0 && DH >= 16 && DH <= 128, "HEAD_DIM: 16..128 in steps of 16");
+constexpr int DQK = QK_DIM;  // a head's query and key width
+constexpr int DV = V_DIM;    // a head's value (and context) width
+static_assert(DQK % 16 == 0 && DQK >= 16 && DQK <= 192, "QK_DIM: 16..192 in steps of 16");
+static_assert(DV % 16 == 0 && DV >= 16 && DV <= 128, "V_DIM: 16..128 in steps of 16");
+static_assert(DV <= DQK, "the context is staged in the Q tile's rows");
 constexpr int NWARPS = 4;
 constexpr int THREADS = 32 * NWARPS;
-constexpr int MT = DH <= 64 ? 2 : 1;  // m16 tiles of query rows a warp
+constexpr int MT = DQK <= 64 && DV <= 64 ? 2 : 1;  // m16 tiles of query rows a warp
 constexpr int BM = 16 * MT * NWARPS;  // query rows a CTA
 constexpr int BN = 64;                // keys a tile
-constexpr int LD = DH + 8;            // shared-memory row stride, in elements
-constexpr int CH = DH / 8;            // 16-byte chunks a row
-constexpr int KS = DH / 16;           // k-steps of Q K^T
+constexpr int LDQ = DQK + 8;          // Q and K tiles' row stride, in elements
+constexpr int LDV = DV + 8;           // the V tile's
+constexpr int CHV = DV / 8;           // 16-byte chunks of a context row
+constexpr int KS = DQK / 16;          // k-steps of Q K^T
 constexpr int NT = BN / 8;            // n8 tiles of a score tile
-constexpr int DT = DH / 8;            // n8 tiles of the context
-constexpr int SMEM_BYTES = (BM + 2 * BN) * LD * 2;
+constexpr int DT = DV / 8;            // n8 tiles of the context
+constexpr int SMEM_BYTES = ((BM + BN) * LDQ + BN * LDV) * 2;
 
 // the float32 kernel: 32 query rows and 32 keys a tile, 4 lanes a row
 constexpr int FB = 32;
-constexpr int FLD = DH + 1;      // Q and K row stride, in floats: odd, so rows fall in distinct banks
+constexpr int FLD = DQK + 1;     // Q and K row stride, in floats: odd, so rows fall in distinct banks
 constexpr int FKEYS = FB / 4;    // keys a lane scores in a tile
-constexpr int FDH = DH / 4;      // context columns a lane keeps
-constexpr int F_SMEM_BYTES = (2 * FB * FLD + FB * DH) * 4;
+constexpr int FDV = DV / 4;      // context columns a lane keeps
+constexpr int F_SMEM_BYTES = (2 * FB * FLD + FB * DV) * 4;
 
 using bf16 = __nv_bfloat16;
 
@@ -156,11 +165,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ROWS rows of Dh from `base` (row r at base + (row0 + r) * stride) into a
-// shared tile; rows at or past `limit` are zero filled.
-template <int ROWS>
+// ROWS rows of W elements from `base` (row r at base + (row0 + r) * stride)
+// into a shared tile of row stride W + 8; rows at or past `limit` are zero
+// filled.
+template <int ROWS, int W>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* base, long long stride,
                                           int row0, int limit, int tid) {
+  constexpr int CH = W / 8, LD = W + 8;  // 16-byte chunks a row, the tile's row stride
   static_assert(ROWS * CH % THREADS == 0, "whole chunks a thread");
 #pragma unroll
   for (int i = 0; i < ROWS * CH / THREADS; ++i) {
@@ -175,8 +186,8 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
                                                                        const float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + BM * LD;
-  bf16* s_v = s_k + BN * LD;
+  bf16* s_k = s_q + BM * LDQ;
+  bf16* s_v = s_k + BN * LDQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, hk = h / a.G;
   const int m0 = (a.n_qblocks - 1 - (int)blockIdx.y) * BM;
@@ -189,15 +200,15 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
   const int n_tiles = (min(m0 + BM, a.T) + BN - 1) / BN;
   const int n_full = (m0 + 1) / BN;
 
-  load_tile<BM>(s_q, qp, a.q_t, m0, a.T, tid);
-  load_tile<BN>(s_k, kp, a.k_t, 0, a.T, tid);
+  load_tile<BM, DQK>(s_q, qp, a.q_t, m0, a.T, tid);
+  load_tile<BN, DQK>(s_k, kp, a.k_t, 0, a.T, tid);
   cp_async_commit();
 
   // per-lane ldmatrix offsets (elements) and fragment coordinates
   const int g = lane >> 2, tig = lane & 3;
-  const int q_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  const int k_off = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+  const int q_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDQ + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * LDQ + ((lane >> 3) & 1) * 8;
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
   const int row_base = m0 + warp * 16 * MT + g;  // this lane's first row; +8, +16 m-tile
 
   uint32_t qf[MT][KS][4];
@@ -217,14 +228,14 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
     const int n0 = j * BN;
     cp_async_wait_all();  // K_j (and, at j = 0, Q)
     __syncthreads();      // ... visible to all; every warp done with V_{j-1}
-    load_tile<BN>(s_v, vp, a.v_t, n0, a.T, tid);
+    load_tile<BN, DV>(s_v, vp, a.v_t, n0, a.T, tid);
     cp_async_commit();
     if (j == 0) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
-          ldsm_x4(qf[mt][ks], smem_addr(s_q + (warp * MT + mt) * 16 * LD + q_off + ks * 16));
+          ldsm_x4(qf[mt][ks], smem_addr(s_q + (warp * MT + mt) * 16 * LDQ + q_off + ks * 16));
     }
 
     // S = Q K_j^T, float32 (unscaled)
@@ -240,7 +251,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kb[4];
-        ldsm_x4(kb, smem_addr(s_k + np * 16 * LD + k_off + ks * 16));
+        ldsm_x4(kb, smem_addr(s_k + np * 16 * LDQ + k_off + ks * 16));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(s[mt][2 * np], qf[mt][ks], kb[0], kb[1]);
@@ -297,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
     cp_async_wait_all();  // V_j
     __syncthreads();      // ... visible to all; every warp done with K_j
     if (j + 1 < n_tiles) {
-      load_tile<BN>(s_k, kp, a.k_t, n0 + BN, a.T, tid);
+      load_tile<BN, DQK>(s_k, kp, a.k_t, n0 + BN, a.T, tid);
       cp_async_commit();
     }
 
@@ -315,7 +326,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vb[4];
-        ldsm_x4_trans(vb, smem_addr(s_v + kk * 16 * LD + v_off + dp * 16));
+        ldsm_x4_trans(vb, smem_addr(s_v + kk * 16 * LDV + v_off + dp * 16));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
@@ -335,7 +346,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.f / l;
-      bf16* dst = s_q + ((warp * MT + mt) * 16 + g + half * 8) * LD + tig * 2;
+      bf16* dst = s_q + ((warp * MT + mt) * 16 + g + half * 8) * LDQ + tig * 2;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
         *reinterpret_cast<uint32_t*>(dst + dt * 8) =
@@ -345,21 +356,22 @@ __global__ void __launch_bounds__(THREADS, 2) attention_prefill_kernel(const Arg
   __syncthreads();
   bf16* op = static_cast<bf16*>(a.o) + b * a.o_b + h * a.o_h;
 #pragma unroll
-  for (int i = 0; i < BM * CH / THREADS; ++i) {
+  for (int i = 0; i < BM * CHV / THREADS; ++i) {
     const int c = tid + i * THREADS;
-    const int r = c / CH, ch = c % CH, row = m0 + r;
+    const int r = c / CHV, ch = c % CHV, row = m0 + r;
     if (row < a.T)
       *reinterpret_cast<uint4*>(op + row * a.o_t + ch * 8) =
-          *reinterpret_cast<const uint4*>(s_q + r * LD + ch * 8);
+          *reinterpret_cast<const uint4*>(s_q + r * LDQ + ch * 8);
   }
 }
 
-// FB float32 rows of Dh from `base` into a shared tile of row stride `ld`;
+// FB float32 rows of W from `base` into a shared tile of row stride `ld`;
 // rows at or past `limit` are zero filled. 16-byte reads.
+template <int W>
 __device__ __forceinline__ void load_tile_f32(float* tile, int ld, const float* base,
                                               long long stride, int row0, int limit, int tid) {
-  for (int c = tid; c < FB * (DH / 4); c += THREADS) {
-    const int r = c / (DH / 4), col = (c % (DH / 4)) * 4, row = row0 + r;
+  for (int c = tid; c < FB * (W / 4); c += THREADS) {
+    const int r = c / (W / 4), col = (c % (W / 4)) * 4, row = row0 + r;
     const float4 x = row < limit ? *reinterpret_cast<const float4*>(base + row * stride + col)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
     float* dst = tile + r * ld + col;
@@ -368,7 +380,7 @@ __device__ __forceinline__ void load_tile_f32(float* tile, int ld, const float* 
 }
 
 __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Args a,
-                                                                        const float sqrt_dh) {
+                                                                        const float sqrt_dqk) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* s_q = reinterpret_cast<float*>(smem);
   float* s_k = s_q + FB * FLD;
@@ -382,17 +394,17 @@ __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Ar
   const float* vp = static_cast<const float*>(a.v) + b * a.v_b + hk * a.v_h;
   const int n_tiles = m0 / FB + 1;  // up to the diagonal tile, the last and only masked one
 
-  load_tile_f32(s_q, FLD, qp, a.q_t, m0, a.T, tid);
-  float acc[FDH];
+  load_tile_f32<DQK>(s_q, FLD, qp, a.q_t, m0, a.T, tid);
+  float acc[FDV];
 #pragma unroll
-  for (int d = 0; d < FDH; ++d) acc[d] = 0.f;
+  for (int d = 0; d < FDV; ++d) acc[d] = 0.f;
   float row_max = -CUDART_INF_F, row_sum = 0.f;  // the sum: this lane's keys only
 
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * FB;
     __syncthreads();  // every warp done with K_{j-1}, V_{j-1}
-    load_tile_f32(s_k, FLD, kp, a.k_t, n0, a.T, tid);
-    load_tile_f32(s_v, DH, vp, a.v_t, n0, a.T, tid);
+    load_tile_f32<DQK>(s_k, FLD, kp, a.k_t, n0, a.T, tid);
+    load_tile_f32<DV>(s_v, DV, vp, a.v_t, n0, a.T, tid);
     __syncthreads();
 
     // this lane's scores: keys n0 + cg + 4 i
@@ -400,7 +412,7 @@ __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Ar
 #pragma unroll
     for (int i = 0; i < FKEYS; ++i) s[i] = 0.f;
 #pragma unroll 16
-    for (int kk = 0; kk < DH; ++kk) {
+    for (int kk = 0; kk < DQK; ++kk) {
       const float x = s_q[r * FLD + kk];
 #pragma unroll
       for (int i = 0; i < FKEYS; ++i) s[i] = fmaf(x, s_k[(cg + 4 * i) * FLD + kk], s[i]);
@@ -408,7 +420,7 @@ __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Ar
     float mx = row_max;
 #pragma unroll
     for (int i = 0; i < FKEYS; ++i) {
-      s[i] /= sqrt_dh;
+      s[i] /= sqrt_dqk;
       if (j == n_tiles - 1 && n0 + cg + 4 * i > row) s[i] = -CUDART_INF_F;
       mx = fmaxf(mx, s[i]);
     }
@@ -426,15 +438,15 @@ __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Ar
 
     // context = alpha context + P V_j, key n0 + c + 4 i's weight from lane c of the row
 #pragma unroll
-    for (int d = 0; d < FDH; ++d) acc[d] *= alpha;
+    for (int d = 0; d < FDV; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int i = 0; i < FKEYS; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float p = __shfl_sync(0xffffffffu, s[i], (lane & ~3) | c);
-        const float* vr = s_v + (c + 4 * i) * DH + cg;
+        const float* vr = s_v + (c + 4 * i) * DV + cg;
 #pragma unroll
-        for (int d = 0; d < FDH; ++d) acc[d] = fmaf(p, vr[4 * d], acc[d]);
+        for (int d = 0; d < FDV; ++d) acc[d] = fmaf(p, vr[4 * d], acc[d]);
       }
     }
   }
@@ -444,7 +456,7 @@ __global__ void __launch_bounds__(THREADS) attention_prefill_f32_kernel(const Ar
   if (row < a.T) {
     float* op = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h + row * a.o_t + cg;
 #pragma unroll
-    for (int d = 0; d < FDH; ++d) op[4 * d] = acc[d] / row_sum;
+    for (int d = 0; d < FDV; ++d) op[4 * d] = acc[d] / row_sum;
   }
 }
 
@@ -465,10 +477,11 @@ cudaError_t allow_smem(K kernel, int bytes, bool (&done)[64]) {
 
 }  // namespace
 
-// q, k, v, out: device pointers (bf16, or float32 when `fp32`); q and out
-// (B, T, H, Dh), k and v (B, T, Hkv, Dh); strides in elements, Dh
-// contiguous, every stride a multiple of 8 and every pointer 16-byte aligned
-// (the wrapper checks). Returns cudaGetLastError() after the launch.
+// q, k, v, out: device pointers (bf16, or float32 when `fp32`); q (B, T, H,
+// Dqk), k (B, T, Hkv, Dqk), v (B, T, Hkv, Dv), out (B, T, H, Dv); strides in
+// elements, the last dimension contiguous, every stride a multiple of 8 and
+// every pointer 16-byte aligned (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
 extern "C" int attention_prefill(const void* q, const void* k, const void* v, void* out,
                                  int B, int T, int H, int Hkv, long long q_b, long long q_t,
                                  long long q_h, long long k_b, long long k_t, long long k_h,
@@ -485,12 +498,12 @@ extern "C" int attention_prefill(const void* q, const void* k, const void* v, vo
     if ((err = allow_smem(attention_prefill_f32_kernel, F_SMEM_BYTES, smem_f32)) != cudaSuccess)
       return (int)err;
     attention_prefill_f32_kernel<<<grid, THREADS, F_SMEM_BYTES, (cudaStream_t)stream>>>(
-        a, sqrtf((float)DH));
+        a, sqrtf((float)DQK));
   } else {
     if ((err = allow_smem(attention_prefill_kernel, SMEM_BYTES, smem_bf16)) != cudaSuccess)
       return (int)err;
     attention_prefill_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        a, (float)(1.4426950408889634 / sqrt((double)DH)));
+        a, (float)(1.4426950408889634 / sqrt((double)DQK)));
   }
   return (int)cudaGetLastError();
 }

@@ -76,7 +76,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_shape, shape_skips
+from repro_torch.configs import ALL_ARCH_IDS, SHAPES, get_config, get_shape, shape_skips
 from repro_torch.tools.roofline import CARD_BYTES, param_counts, roofline_terms
 
 REPORT = os.path.join(os.path.dirname(__file__), "..", "..", "..", "reports",
@@ -334,7 +334,7 @@ def main(argv=None):
     if os.path.exists(args.report):
         with open(args.report) as f:
             results = json.load(f)
-    archs = [args.arch] if args.arch else ARCH_IDS
+    archs = [args.arch] if args.arch else ALL_ARCH_IDS
     shapes = [args.shape] if args.shape else list(SHAPES)
     n_fail = 0
     for arch in archs:

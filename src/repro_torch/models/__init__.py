@@ -9,6 +9,16 @@ paper's secure shuffle (`models.moe`), differentiably. `param_axes` has no
 counterpart on one card.
 """
 
-from repro_torch.models.lm import LM, encode_audio, forward, init_params, loss_fn, main_kind
+from repro_torch.models.lm import (
+    LM,
+    encode_audio,
+    forward,
+    init_params,
+    layer_kind,
+    loss_fn,
+    main_kind,
+    output_head,
+)
 
-__all__ = ["LM", "encode_audio", "forward", "init_params", "loss_fn", "main_kind"]
+__all__ = ["LM", "encode_audio", "forward", "init_params", "layer_kind", "loss_fn", "main_kind",
+           "output_head"]

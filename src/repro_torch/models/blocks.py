@@ -3,7 +3,10 @@
 Counterpart of `repro/models/blocks.py`: the kinds `attn` (the dense and vlm
 families, hybrid's shared block), `enc` (audio's encoder), `moe`, `mamba`
 (hybrid), `rwkv` (ssm) and `dec_cross` (audio's decoder), with the
-reference's parameter names, and the remat policy (`remat_wrap`).
+reference's parameter names, and the remat policy (`remat_wrap`). A block's
+self-attention is latent attention where `cfg.attention == "mla"`
+(`attention.attention_params`); a moe model's first `cfg.first_dense_layers`
+layers are `attn` blocks of `d_ff` (`lm.layer_kind`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class Block(nn.Module):
             self.tmix = rwkv_mod.RWKV(cfg, device)
             self.ln2 = Norm(d, device)
             return
-        self.attn = attn.Attention(cfg, device)
+        self.attn = attn.attention_params(cfg, device)
         if kind == "dec_cross":
             self.lnx = Norm(d, device)
             self.xattn = attn.Attention(cfg, device)

@@ -105,7 +105,7 @@ def layernorm(params, x, eps=1e-5):
 
 
 def apply_norm(cfg, params, x):
-    return rmsnorm(params, x) if cfg.norm == "rmsnorm" else layernorm(params, x)
+    return rmsnorm(params, x, cfg.norm_eps) if cfg.norm == "rmsnorm" else layernorm(params, x)
 
 
 def _gelu_tanh(x):
@@ -167,11 +167,22 @@ class _EmbedLookup(torch.autograd.Function):
         return grad.to(ctx.table_dtype), None, None
 
 
+class Head(Params):
+    """An output head of its own (`cfg.separate_head`), laid out as the
+    embedding table: (padded vocab, d_model), a matrix of fan-in d_model."""
+
+    def __init__(self, cfg, vocab: int, d_model: int, device):
+        super().__init__()
+        self.weight("table", (vocab, d_model), cfg, device, fan_in=d_model)
+
+
 def embed_apply(cfg, params, tokens):
     return _EmbedLookup.apply(params.table, tokens, compute_dtype(cfg))
 
 
 def unembed_apply(cfg, params, x):
+    """Logits over the padded vocabulary; `params` the embedding (tied) or
+    the `Head`."""
     logits = x @ params.table.to(x.dtype).t()
     if params.table.shape[0] > cfg.vocab_size:
         # mask padding rows (never predicted, zero softmax mass)

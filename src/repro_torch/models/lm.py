@@ -9,7 +9,8 @@ Families:
   dense | vlm       attn blocks
   moe               attn+MoE blocks (secure-shuffle expert dispatch inside;
                     with `moe_remat="save_shuffle"` the backward keeps both
-                    legs' outputs at both levels and replays no exchange)
+                    legs' outputs at both levels and replays no exchange),
+                    after `first_dense_layers` attn blocks (`layer_kind`)
   ssm (rwkv6)       rwkv blocks
   hybrid (zamba2)   mamba blocks in groups of `attn_every`, each group
                     followed by ONE weight-shared attention+MLP block
@@ -30,6 +31,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Embed,
+    Head,
     Norm,
     apply_norm,
     compute_dtype,
@@ -52,6 +54,19 @@ def main_kind(cfg) -> str:
     }[cfg.family]
 
 
+def layer_kind(cfg, i: int) -> str:
+    """The block kind of layer i of `layers`: `main_kind`, but "attn" for a
+    moe model's first `cfg.first_dense_layers` layers."""
+    kind = main_kind(cfg)
+    return "attn" if kind == "moe" and i < cfg.first_dense_layers else kind
+
+
+def output_head(cfg, model):
+    """The parameters the logits are read from: the embedding (tied) or,
+    with `cfg.separate_head`, the head of its own (`head.table`)."""
+    return model.head if cfg.separate_head else model.embed
+
+
 def check_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the port has "
@@ -61,7 +76,8 @@ def check_family(cfg) -> None:
 class LM(nn.Module):
     """The model's parameters, named as the reference's tree: `embed.table`,
     `layers.<i>.*` (audio: `encoder.<i>.*`, `enc_norm.scale`,
-    `decoder.<i>.*`; hybrid adds `shared_attn.*`), `final_norm.scale`. Built
+    `decoder.<i>.*`; hybrid adds `shared_attn.*`), `final_norm.scale`, and
+    `head.table` where `cfg.separate_head` (the port's own). Built
     uninitialised; `init_params` draws it, `load_state_dict` of
     `repro_torch.convert.lm_params` loads the reference's. `n_model` pads the
     experts to a multiple of the mesh's shards, as the reference's.
@@ -84,10 +100,13 @@ class LM(nn.Module):
             self.enc_norm = Norm(cfg.d_model, device)
             self.decoder = stack("dec_cross", cfg.n_layers)
         else:
-            self.layers = stack(main_kind(cfg), cfg.n_layers)
+            self.layers = nn.ModuleList(B.block_init(cfg, layer_kind(cfg, i), n_model, device)
+                                        for i in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared_attn = B.block_init(cfg, "attn", n_model, device)
         self.final_norm = Norm(cfg.d_model, device)
+        if cfg.separate_head:
+            self.head = Head(cfg, cfg.padded_vocab, cfg.d_model, device)
         if param_dtype is not None:
             self.to(param_dtype).requires_grad_(True)
 
@@ -188,16 +207,18 @@ def forward(cfg, model, batch, mesh=None, secure_moe=None):
     aux = {"moe_aux": torch.zeros((), device=tokens.device),
            "moe_dropped": torch.zeros((), dtype=torch.int32, device=tokens.device)}
     if cfg.family == "moe":
-        def step(carry, p):
-            h, moe_aux, dropped = carry
+        def step(carry, layer):
+            (h, moe_aux, dropped), (i, p) = carry, layer
+            if layer_kind(cfg, i) != "moe":
+                return B.apply_attn_block(cfg, p, h, positions), moe_aux, dropped
             h, a, d = B.apply_moe_block(cfg, p, h, positions, mesh=mesh, secure=secure_moe)
             return h, moe_aux + a, dropped + d
 
         save = moe_mod.EXCHANGE_OPS if cfg.moe_remat == "save_shuffle" else ()
-        x, moe_aux, dropped = _walk_layers(cfg, model.layers,
+        x, moe_aux, dropped = _walk_layers(cfg, list(enumerate(model.layers)),
                                            (x, aux["moe_aux"], aux["moe_dropped"]), step,
                                            save)
-        aux = {"moe_aux": moe_aux / cfg.n_layers, "moe_dropped": dropped}
+        aux = {"moe_aux": moe_aux / cfg.n_moe_layers, "moe_dropped": dropped}
     elif cfg.family == "ssm":
         x = _walk_layers(cfg, model.layers, x, lambda h, p: B.apply_rwkv_block(cfg, p, h)[0])
     elif cfg.family == "hybrid":
@@ -212,7 +233,7 @@ def forward(cfg, model, batch, mesh=None, secure_moe=None):
         x = _walk_layers(cfg, model.layers, x,
                          lambda h, p: B.apply_attn_block(cfg, p, h, positions))
     x = apply_norm(cfg, model.final_norm, x)
-    return unembed_apply(cfg, model.embed, x), aux
+    return unembed_apply(cfg, output_head(cfg, model), x), aux
 
 
 def loss_fn(cfg, model, batch, mesh=None, secure_moe=None, aux_coef: float = 0.01):

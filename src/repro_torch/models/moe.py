@@ -15,6 +15,13 @@ sequence does not split over R take `_moe_decode_body`: every shard holds
 the same tokens and runs its own experts, and a `psum` adds the partial
 outputs. Without a mesh, `_moe_local` packs and runs every expert in place.
 
+The router (`_route`): "softmax" takes the top k of the softmax, gates
+renormalised; "sigmoid_bias" (the port's own, DeepSeek-V3's noaux_tc with
+one group) takes the top k of sigmoid(x W_r) + `router_bias` in float32,
+and gates the chosen experts by their unbiased scores, renormalised, times
+`cfg.routed_scaling`. Shared experts (the span `moe.shared`) add to every
+token, through a sigmoid gate unless `cfg.shared_expert_gate` is False.
+
 Token dropping: per-expert capacity = ceil(k·n/E_pad · capacity_factor),
 rounded up to a multiple of 4 (at least 4); dropped tokens pass through, and
 the drop count comes back as aux.
@@ -44,7 +51,7 @@ from repro_torch.core.shuffle import SecureShuffleConfig, bucket_pack, keyed_all
 from repro_torch.kernels import kernel_calls, uses_kernel
 from repro_torch.kernels.moe.kernel import moe_combine_cuda, moe_dispatch_cuda
 from repro_torch.kernels.moe.ref import moe_combine_ref, moe_dispatch_ref, to_prompt_order
-from repro_torch.models.layers import Params, act_fn
+from repro_torch.models.layers import Params, act_fn, compute_dtype
 from repro_torch.tools.opcount import spans
 
 # what `moe_remat="save_shuffle"` keeps for the backward: the reference's
@@ -63,18 +70,23 @@ class SharedExpert(Params):
         self.weight("wi", (d, fs), cfg, device)
         self.weight("wg", (d, fs), cfg, device)
         self.weight("wo", (fs, d), cfg, device, fan_in=fs)
-        self.weight("gate", (d, 1), cfg, device)
+        if cfg.shared_expert_gate:
+            self.weight("gate", (d, 1), cfg, device)
 
 
 class MoE(Params):
     """Router, the (E_pad, ...) expert stacks and the optional shared expert;
     E_pad = `padded_experts(cfg, n_model)`. The expert stacks' leading-dim
-    fan-in is the reference's `ninit` default (shape[0])."""
+    fan-in is the reference's `ninit` default (shape[0]). A "sigmoid_bias"
+    router adds `router_bias` (E_pad,), zeros at init, in the compute dtype;
+    it moves the choice of experts only, so it takes no gradient."""
 
     def __init__(self, cfg, device, n_model: int = 1):
         super().__init__()
         d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, padded_experts(cfg, n_model)
         self.weight("router", (d, e), cfg, device)
+        if cfg.router == "sigmoid_bias":
+            self.param("router_bias", (e,), compute_dtype(cfg), device, ("fill", 0.0))
         self.weight("wi", (e, d, f), cfg, device)
         self.weight("wg", (e, d, f), cfg, device)
         self.weight("wo", (e, f, d), cfg, device, fan_in=f)
@@ -87,26 +99,43 @@ def moe_init(cfg, n_model: int = 1, device=None) -> MoE:
     return MoE(cfg, device, n_model)
 
 
-def _route(cfg, router_w, x2, e_pad):
-    """x2: (..., n, d) -> gates (..., n, k), experts (..., n, k) int32, aux (...).
+def _route(cfg, router_w, x2, e_pad, bias=None):
+    """x2: (..., n, d) -> gates (..., n, k), experts (..., n, k) int32, aux (...);
+    `bias` the "sigmoid_bias" router's (E_pad,) (`_route_layer`).
 
-    The experts are the top k by probability, ties to the lower index, as
-    `lax.top_k` orders them (a stable descending sort: bf16 router logits
-    tie often enough to matter).
+    The experts are the top k by probability ("softmax") or by biased score
+    ("sigmoid_bias"), ties to the lower index, as `lax.top_k` orders them (a
+    stable descending sort: bf16 router logits tie often enough to matter).
     """
-    logits = (x2 @ router_w.to(x2.dtype)).float()
-    if e_pad > cfg.n_experts:  # padding experts never win (logits is a new tensor)
-        logits[..., cfg.n_experts:] = -1e30
-    probs = torch.softmax(logits, dim=-1)
     k = cfg.n_experts_per_tok
-    gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, eidx = gates[..., :k], eidx[..., :k]
-    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    if cfg.router == "sigmoid_bias":
+        scores = torch.sigmoid(x2.float() @ router_w.float())
+        choice = scores + bias.float()
+        if e_pad > cfg.n_experts:  # padding experts never win
+            choice[..., cfg.n_experts:] = -torch.inf
+            scores[..., cfg.n_experts:] = 0.0
+        eidx = torch.sort(choice, dim=-1, descending=True, stable=True)[1][..., :k]
+        gates = torch.gather(scores, -1, eidx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9) * cfg.routed_scaling
+        probs = scores / torch.clamp(scores.sum(-1, keepdim=True), min=1e-9)
+    else:
+        logits = (x2 @ router_w.to(x2.dtype)).float()
+        if e_pad > cfg.n_experts:  # padding experts never win (logits is a new tensor)
+            logits[..., cfg.n_experts:] = -1e30
+        probs = torch.softmax(logits, dim=-1)
+        gates, eidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gates, eidx = gates[..., :k], eidx[..., :k]
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # aux: load-balance statistics (Switch-style), per shard
     load = torch.nn.functional.one_hot(eidx[..., 0], e_pad).float().mean(dim=-2)
     importance = probs.mean(dim=-2)
     aux = e_pad * torch.sum(load * importance, dim=-1)
     return gates.to(x2.dtype), eidx.to(torch.int32), aux
+
+
+def _route_layer(cfg, params, x2, e_pad):
+    """`_route` with a MoE layer's router (and its bias, where it has one)."""
+    return _route(cfg, params.router, x2, e_pad, getattr(params, "router_bias", None))
 
 
 def _expert_ffn(cfg, wi, wg, wo, xe):
@@ -118,12 +147,16 @@ def _expert_ffn(cfg, wi, wg, wo, xe):
 
 
 def _shared_expert(cfg, sp, x2):
-    dt = x2.dtype
-    h = x2 @ sp.wi.to(dt)
-    g = x2 @ sp.wg.to(dt)
-    y = (act_fn(cfg)(g) * h) @ sp.wo.to(dt)
-    gate = torch.sigmoid((x2 @ sp.gate.to(dt)).float()).to(dt)
-    return y * gate
+    """The shared experts' output for every token (the span `moe.shared`)."""
+    with spans.span("moe.shared"):
+        dt = x2.dtype
+        h = x2 @ sp.wi.to(dt)
+        g = x2 @ sp.wg.to(dt)
+        y = (act_fn(cfg)(g) * h) @ sp.wo.to(dt)
+        if not cfg.shared_expert_gate:
+            return y
+        gate = torch.sigmoid((x2 @ sp.gate.to(dt)).float()).to(dt)
+        return y * gate
 
 
 def _capacity(cfg, n_tokens: int, e_pad: int) -> int:
@@ -195,7 +228,7 @@ def _combine_rows(got, pos, gates, batch: int | None = None):
 def _moe_local(cfg, params, x2, e_pad: int, capacity: int | None = None):
     """Single-domain path: pack -> batched expert FFN -> combine (no comms)."""
     n, d = x2.shape
-    gates, eidx, aux = _route(cfg, params.router, x2, e_pad)
+    gates, eidx, aux = _route_layer(cfg, params, x2, e_pad)
     k = cfg.n_experts_per_tok
     cap = capacity or _capacity(cfg, n, e_pad)
     keys = _entry_keys(n, k, x2.device)
@@ -231,7 +264,7 @@ def _moe_decode_body(cfg, params, x, mesh):
     e_loc = e_pad // r
     my_first = (mesh.axis_index() * e_loc)[:, None]  # (R, 1)
 
-    gates, eidx, aux = _route(cfg, params.router, x2, e_pad)
+    gates, eidx, aux = _route_layer(cfg, params, x2, e_pad)
     k = cfg.n_experts_per_tok
     keys = _entry_keys(n, k, x.device)
     expert = eidx.reshape(1, -1)
@@ -274,7 +307,7 @@ def _moe_shuffle_body(cfg, params, x, mesh, secure: SecureShuffleConfig | None):
     with spans.span("moe.route"):
         x2 = x.reshape(b, r, t // r, d).transpose(0, 1).reshape(r, -1, d)
         n = x2.shape[1]
-        gates, eidx, aux = _route(cfg, params.router, x2, e_pad)  # (R, n, k)
+        gates, eidx, aux = _route_layer(cfg, params, x2, e_pad)  # (R, n, k)
         cap = _capacity(cfg, n, e_pad)
 
         # --- map: emit (expert_key, token_vector); shuffle: hash(key) = key --

@@ -4,7 +4,10 @@ Counterpart of `repro/serve/engine.py`. The cache is a dict of tensors on
 one device, written in place: `prefill` fills it and returns the last
 token's logits, `decode_step` appends one token and returns float32 logits.
 Per family:
-  dense | vlm | moe  "k", "v" (L, B, S, Hkv, Dh)
+  dense | vlm | moe  "k", "v" (L, B, S, Hkv, Dh); with latent attention
+                     (`cfg.attention == "mla"`) "ckv" (L, B, S, r), the
+                     normalised latent, and "kpe" (L, B, S, rope), the
+                     rotated key every head shares, in their place
   ssm                "tshift", "cshift" (L, B, 1, d): the normalised inputs'
                      last tokens; "wkv" (L, B, H, Dk, Dv) float32
   hybrid             "ssm_h" (L, B, H, N, P) float32, "conv" (L, B, W-1,
@@ -28,14 +31,19 @@ their routed rows by the slot map (`models.moe._dispatch_rows`,
 `_combine_rows`: on the card the dispatch and combine kernels, counted in
 `kernel_calls["moe_dispatch"]` and `["moe_combine"]`).
 
+A layer's kind (`models.lm.layer_kind`) decides whether it runs an MLP or
+a MoE: a moe model's first `cfg.first_dense_layers` layers are dense.
+
 Instruments (`repro_torch.tools.opcount`): a prefill is the span
 `engine.prefill`, each self-attention in it `engine.attention` (a layer of
 the dense, MoE and VLM families tagged with its index, `layer`, which the
-MoE's `moe.route`, `shuffle.exchange`, `moe.experts` and `moe.combine`
-spans inherit);
+MoE's `moe.route`, `shuffle.exchange`, `moe.experts`, `moe.combine` and
+`moe.shared` spans and latent attention's `mla.expand` inherit);
 every MoE layer of a prefill or a decode step adds its dropped expert
 entries to the counter `moe.dropped_entries` and its routed ones (B·T·k) to
-`moe.routed_entries`.
+`moe.routed_entries`; every prefill adds the bytes it writes into the cache
+(its tokens' entries, not the zeroed positions past them) to
+`engine.cache_bytes`.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_norm, compute_dtype, embed_apply, mlp_apply, unembed_apply
-from repro_torch.models.lm import check_family, encode_audio
+from repro_torch.models.lm import check_family, encode_audio, layer_kind, output_head
 from repro_torch.tools.opcount import counters, spans
 
 
@@ -66,6 +74,8 @@ def init_cache(cfg, batch: int, max_seq: int, device=None, dtype=None) -> dict:
 
     kv = (l, batch, max_seq, hkv, dh)
     c = {"pos": zeros((batch,), torch.int32)}
+    if cfg.attention == "mla" and cfg.family not in ("dense", "vlm", "moe"):
+        raise ValueError(f"{cfg.name}: latent attention in the {cfg.family} family")
     if cfg.family == "ssm":
         h, dk = rwkv_mod.rwkv_dims(cfg)
         c.update(tshift=zeros((l, batch, 1, cfg.d_model)),
@@ -77,6 +87,9 @@ def init_cache(cfg, batch: int, max_seq: int, device=None, dtype=None) -> dict:
         c.update(ssm_h=zeros((l, batch, h, cfg.ssm_state, ssm_mod.HEAD_P), torch.float32),
                  conv=zeros((l, batch, cfg.ssm_conv - 1, d_inner)),
                  attn_k=zeros((n_inv,) + kv[1:]), attn_v=zeros((n_inv,) + kv[1:]))
+    elif cfg.attention == "mla":
+        c.update(ckv=zeros((l, batch, max_seq, cfg.kv_lora_rank)),
+                 kpe=zeros((l, batch, max_seq, cfg.qk_rope_head_dim)))
     else:
         c.update(k=zeros(kv), v=zeros(kv))
         if cfg.family == "audio":
@@ -85,22 +98,40 @@ def init_cache(cfg, batch: int, max_seq: int, device=None, dtype=None) -> dict:
     return c
 
 
+def _cache_write(store, new):
+    """`store.copy_(new)`, its bytes counted in `engine.cache_bytes`."""
+    store.copy_(new)
+    counters.add("engine.cache_bytes", new.numel() * store.element_size())
+
+
 def _store_kv(cache_k, cache_v, k, v):
-    """Write a prefill's (B, T, Hkv, Dh) K/V into one layer's cache; the
-    positions past T are zeroed, as the reference's padded cache has them."""
+    """Write a prefill's (B, T, ...) entries (K and V, or latent attention's
+    c and k_pe) into one layer's cache; the positions past T are zeroed, as
+    the reference's padded cache has them."""
     t = k.shape[1]
     for store, new in ((cache_k, k), (cache_v, v)):
-        store[:, :t] = new
+        _cache_write(store[:, :t], new)
         store[:, t:] = 0
 
 
-def _prefill_attn(cfg, p, x, positions, cache_k, cache_v):
-    """Self-attention of a prefill, its K/V into the cache; returns x + attn."""
+def _layer_cache(cfg, cache, i):
+    """Layer i's self-attention cache: (k, v), or latent attention's (ckv, kpe)."""
+    names = ("ckv", "kpe") if cfg.attention == "mla" else ("k", "v")
+    return cache[names[0]][i], cache[names[1]][i]
+
+
+def _prefill_attn(cfg, p, x, positions, cache_a, cache_b):
+    """Self-attention of a prefill, its cache entries (K and V, or latent
+    attention's c and k_pe) into `cache_a`, `cache_b`; returns x + attn."""
     with spans.span("engine.attention"):
         hn = apply_norm(cfg, p.ln1, x)
+        if cfg.attention == "mla":
+            a, c, k_pe = attn.prefill_mla_attention(cfg, p.attn, hn, positions)
+            _store_kv(cache_a, cache_b, c, k_pe)
+            return x + a
         k, v = attn.project_kv(cfg, p.attn, hn, positions)
         x = x + attn.prefill_self_attention(cfg, p.attn, hn, positions, kv=(k, v))
-        _store_kv(cache_k, cache_v, k, v)
+        _store_kv(cache_a, cache_b, k, v)
         return x
 
 
@@ -131,14 +162,14 @@ def _prefill(cfg, model, tokens, cache, mesh, frames, secure_moe):
         for i, p in enumerate(model.layers):
             x, states = B.apply_rwkv_block(cfg, p, x)
             for name, s in zip(("tshift", "wkv", "cshift"), states):
-                cache[name][i].copy_(s)
+                _cache_write(cache[name][i], s)
     elif fam == "hybrid":
         every = cfg.attn_every or (cfg.n_layers + 1)
         inv = 0
         for i, p in enumerate(model.layers):
             x, h_end, conv_end = B.apply_mamba_block(cfg, p, x)
-            cache["ssm_h"][i].copy_(h_end)
-            cache["conv"][i].copy_(conv_end)
+            _cache_write(cache["ssm_h"][i], h_end)
+            _cache_write(cache["conv"][i], conv_end)
             if i % every == every - 1:
                 sp = model.shared_attn
                 x = _prefill_attn(cfg, sp, x, positions, cache["attn_k"][inv],
@@ -149,8 +180,8 @@ def _prefill(cfg, model, tokens, cache, mesh, frames, secure_moe):
         if frames is None:
             raise ValueError("audio prefill needs the frontend's frames")
         xk, xv = encode_audio(cfg, model, frames)
-        cache["xk"].copy_(xk)
-        cache["xv"].copy_(xv)
+        _cache_write(cache["xk"], xk)
+        _cache_write(cache["xv"], xv)
         del xk, xv
         for i, p in enumerate(model.decoder):
             x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
@@ -160,20 +191,22 @@ def _prefill(cfg, model, tokens, cache, mesh, frames, secure_moe):
     else:
         for i, p in enumerate(model.layers):
             with spans.tagged(layer=i):
-                x = _prefill_attn(cfg, p, x, positions, cache["k"][i], cache["v"][i])
+                x = _prefill_attn(cfg, p, x, positions, *_layer_cache(cfg, cache, i))
                 hn = apply_norm(cfg, p.ln2, x)
-                if fam == "moe":
+                if layer_kind(cfg, i) == "moe":
                     x = x + _moe_layer(cfg, p, hn, mesh, secure_moe)
                 else:
                     x = x + mlp_apply(cfg, p.mlp, hn)
     cache["pos"].fill_(t)
     x = apply_norm(cfg, model.final_norm, x[:, -1:])
-    return unembed_apply(cfg, model.embed, x)[:, 0]
+    return unembed_apply(cfg, output_head(cfg, model), x)[:, 0]
 
 
-def _decode_attn(cfg, p, x, cache_k, cache_v, pos):
+def _decode_attn(cfg, p, x, cache_a, cache_b, pos):
     hn = apply_norm(cfg, p.ln1, x)
-    a, _, _ = attn.decode_self_attention(cfg, p.attn, hn, cache_k, cache_v, pos)
+    if cfg.attention == "mla":
+        return x + attn.decode_mla_attention(cfg, p.attn, hn, cache_a, cache_b, pos)
+    a, _, _ = attn.decode_self_attention(cfg, p.attn, hn, cache_a, cache_b, pos)
     return x + a
 
 
@@ -217,12 +250,12 @@ def decode_step(cfg, model, cache, tokens, mesh=None):
             x = x + mlp_apply(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
     else:
         for i, p in enumerate(model.layers):
-            x = _decode_attn(cfg, p, x, cache["k"][i], cache["v"][i], pos)
+            x = _decode_attn(cfg, p, x, *_layer_cache(cfg, cache, i), pos)
             hn = apply_norm(cfg, p.ln2, x)
-            if fam == "moe":
+            if layer_kind(cfg, i) == "moe":
                 x = x + _moe_layer(cfg, p, hn, mesh)
             else:
                 x = x + mlp_apply(cfg, p.mlp, hn)
     pos.add_(1)
     x = apply_norm(cfg, model.final_norm, x)
-    return unembed_apply(cfg, model.embed, x)[:, 0].float()
+    return unembed_apply(cfg, output_head(cfg, model), x)[:, 0].float()

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ALL_ARCH_IDS, get_config
 from repro_torch.crypto.chacha import key_to_words, nonce_to_words
 from repro_torch.core.shuffle import SecureShuffleConfig
 from repro_torch.device import resolve_device
@@ -40,7 +40,7 @@ def sample(logits, vocab_size: int, temperature: float, generator) -> torch.Tens
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="granite-moe-3b-a800m", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="granite-moe-3b-a800m", choices=ALL_ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=32)

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import json
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config, get_shape
+from repro_torch.configs import ALL_ARCH_IDS, PORT_ARCH_IDS, SHAPES, get_config, get_shape
 
 PEAK_FLOPS = 989e12  # H100 SXM, bf16 dense tensor cores, 700 W
 HBM_BW = 3.35e12  # H100 SXM HBM3, B/s
@@ -35,7 +35,11 @@ def ssm_dims(cfg):
 
 
 def param_counts(cfg) -> tuple[int, int]:
-    """(total, active-per-token) parameter counts, embeddings included once."""
+    """(total, active-per-token) parameter counts, embeddings included once:
+    the reference's formulas, and for the port's own configs
+    (`configs.PORT_ARCH_IDS`) the model's own parameters (`_built_counts`)."""
+    if cfg.name in PORT_ARCH_IDS:
+        return _built_counts(cfg)
     d, ff, l = cfg.d_model, cfg.d_ff, cfg.n_layers
     dh = cfg.head_dim
     attn = d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh + cfg.n_heads * dh * d
@@ -70,6 +74,18 @@ def param_counts(cfg) -> tuple[int, int]:
     layer = attn + 3 * d * ff  # dense / vlm
     total = emb + l * layer
     return total, total
+
+
+def _built_counts(cfg) -> tuple[int, int]:
+    """Every parameter of the model built on `meta`; active leaves out the
+    routed experts a token does not reach."""
+    from repro_torch.models.lm import LM
+
+    params = dict(LM(cfg, n_model=1, device="meta").named_parameters())
+    total = sum(p.numel() for p in params.values())
+    experts = sum(p.numel() for n, p in params.items() if n.endswith((".moe.wi", ".moe.wg", ".moe.wo")))
+    idle = experts * (cfg.n_experts - cfg.n_experts_per_tok) // max(cfg.n_experts, 1)
+    return total, total - idle
 
 
 def model_flops(cfg, shape) -> float:
@@ -119,7 +135,7 @@ def generate_report(report_path: str) -> dict:
         results = json.load(f)
     rows = []
     for mesh_name in MESHES:
-        for arch in ARCH_IDS:
+        for arch in ALL_ARCH_IDS:
             cfg = get_config(arch)
             for shape_name in SHAPES:
                 key = f"{arch}|{shape_name}|{mesh_name}"

@@ -21,7 +21,7 @@ import time
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ALL_ARCH_IDS, get_config
 from repro_torch.core.shuffle import SecureShuffleConfig
 from repro_torch.crypto.chacha import key_to_words, nonce_to_words
 from repro_torch.crypto.keys import make_session_keys
@@ -34,7 +34,7 @@ from repro_torch.train.step import SecureIngest, init_train_state, make_train_st
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="granite-moe-3b-a800m", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="granite-moe-3b-a800m", choices=ALL_ARCH_IDS)
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -153,9 +153,14 @@ def test_kernel_wrapper_refuses_cpu_tensors_before_any_build():
 
 
 def test_each_head_size_is_a_library_of_its_own():
-    paths = {dh: _build.library_path("attention", {"HEAD_DIM": dh}) for dh in akernel.HEAD_DIMS}
+    """One library a (Dqk, Dv) build: every grouped-query head size with Dv =
+    Dh, and latent attention's (192, 128)."""
+    assert akernel.BUILDS == tuple((d, d) for d in akernel.HEAD_DIMS) + ((192, 128),)
+    paths = {(dqk, dv): _build.library_path("attention", {"QK_DIM": dqk, "V_DIM": dv})
+             for dqk, dv in akernel.BUILDS}
     assert len(set(paths.values())) == len(paths)
-    assert all(p.name.startswith(f"libattention_head_dim{dh}-") for dh, p in paths.items())
+    assert all(p.name.startswith(f"libattention_qk_dim{dqk}_v_dim{dv}-")
+               for (dqk, dv), p in paths.items())
     assert _build.library_path("kmeans").name.startswith("libkmeans-")
-    assert _build._flags({"HEAD_DIM": 64})[-1] == "-DHEAD_DIM=64"
+    assert _build._flags({"QK_DIM": 192, "V_DIM": 128})[-2:] == ["-DQK_DIM=192", "-DV_DIM=128"]
     assert _build._flags(None) == list(_build.NVCC_FLAGS)

@@ -1,7 +1,8 @@
 """The port's abstract dry-run (repro_torch.launch.dryrun) on the CPU.
 
 For a reduced config of each family (dense, vlm, moe with and without
-shared experts, ssm, hybrid, audio) and each kind of cell (a training step,
+shared experts, moe with latent attention and a dense first layer, ssm,
+hybrid, audio) and each kind of cell (a training step,
 a prefill, a decode step) at a small shape, the abstract run on the `meta`
 device counts what the same entry run for real on the CPU counts: the same
 FLOPs (`FlopCounterMode`, exactly), the same kernel calls, collectives and
@@ -22,12 +23,12 @@ import dataclasses
 import pytest
 import torch
 
-from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config
+from repro_torch.configs import ALL_ARCH_IDS, ShapeConfig, get_config
 from repro_torch.launch import dryrun
 from repro_torch.tools.roofline import param_counts
 
 FAMILIES = ["glm4-9b", "chameleon-34b", "granite-moe-3b-a800m", "qwen2-moe-a2.7b",
-            "rwkv6-1.6b", "zamba2-1.2b", "whisper-base"]
+            "rwkv6-1.6b", "zamba2-1.2b", "whisper-base", "moonlight-16b-a3b"]
 KINDS = {"train": ShapeConfig("train_small", "train", 16, 2),
          "prefill": ShapeConfig("prefill_small", "prefill", 16, 2),
          "decode": ShapeConfig("decode_small", "decode", 16, 2)}
@@ -60,11 +61,11 @@ def test_abstract_counts_equal_a_real_cpu_run(arch, kind):
         # layer forward, as many for the cotangents in training
         per_layer = 8 if kind == "train" else 4
         micro = dryrun.pick_accum(get_config(arch), shape) if kind == "train" else 1
-        n = over["n_layers"] * per_layer * micro
-        want = {"chacha20_xor_packed": n}
-        if kind == "prefill":  # and the prefill's attention, dispatch and combine, once a layer
-            want["attention_prefill"] = over["n_layers"]
-            want["moe_dispatch"] = want["moe_combine"] = over["n_layers"]
+        n_moe = over["n_layers"] - over["first_dense_layers"]  # the MoE layers
+        want = {"chacha20_xor_packed": n_moe * per_layer * micro}
+        if kind == "prefill":  # and the prefill's attention, once a layer, dispatch and
+            want["attention_prefill"] = over["n_layers"]  # combine once a MoE layer
+            want["moe_dispatch"] = want["moe_combine"] = n_moe
         assert meta["kernel_calls"] == want
         assert meta["collectives"]["wire_bytes"] > 0
 
@@ -96,7 +97,7 @@ def test_resident_bytes_are_the_real_tensors_sizes(kind):
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 def test_fits_one_card_agrees_with_the_bf16_weight_sizes(shape):
-    got = {arch: dryrun.cell_memory(arch, shape) for arch in ARCH_IDS}
+    got = {arch: dryrun.cell_memory(arch, shape) for arch in ALL_ARCH_IDS}
     no_fit = {"deepseek-67b", "mistral-large-123b"}
     for arch, mem in got.items():
         bf16_gb = 2 * param_counts(get_config(arch))[0] / 1e9

@@ -1619,12 +1619,13 @@ def _attn_inputs(b, t, h, hkv, dh, device, seed=0, dtype=torch.bfloat16):
 
 
 def _attn_exact(q, k, v, dtype=torch.float32):
-    """Causal softmax(q k^T / sqrt(Dh)) v in `dtype`, a batch row at a time."""
+    """Causal softmax(q k^T / sqrt(Dqk)) v in `dtype`, a batch row at a time:
+    (B, T, H, Dv)."""
     h, dh = q.shape[2], q.shape[3]
     g = h // k.shape[2]
     kk = k.to(dtype).repeat_interleave(g, dim=2)
     vv = v.to(dtype).repeat_interleave(g, dim=2)
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=dtype, device=q.device)
     for i in range(q.shape[0]):
         s = torch.einsum("thd,shd->hts", q[i].to(dtype), kk[i]) / dh ** 0.5
         keep = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device).tril()
@@ -1832,3 +1833,199 @@ def test_engine_prefill_with_the_kernel_matches_the_plain_path(cuda, monkeypatch
     for name in ("k", "v"):
         for layer in range(cfg.n_layers):
             assert _rel(cache[name][layer, :, :2085], want_cache[name][layer, :, :2085]) <= 0.19
+
+
+# --- the kernel's latent-attention build: q and k of 192 beside v of 128 ----------
+# Moonlight-16B-A3B's heads (`models/attention.py`'s MLA): scores over 192
+# columns (128 + the 64-wide rotary part), scaled by 1 / sqrt(192), a
+# context of 128. The same tolerances as the grouped-query builds.
+
+
+def _latent_inputs(b, t, h, device, seed=0, dtype=torch.bfloat16, dqk=192, dv=128):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=g, device=device).to(dtype)
+            for d in (dqk, dqk, dv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h", [
+    (4, 8192, 16),   # moonlight's prefill layer: 4 prompts of 8,192, 16 heads
+    (1, 77, 16), (2, 2085, 16), (3, 1, 4),  # odd T, one query
+])
+def test_attention_prefill_latent_build_matches_plain(cuda, b, t, h):
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _latent_inputs(b, t, h, cuda, seed=t)
+    before = kernel.launches
+    got = kernel.attention_prefill_cuda(q, k, v)
+    assert kernel.launches == before + 1
+    assert got.shape == (b, t, h, 128) and got.dtype == torch.bfloat16
+    assert torch.equal(got, kernel.attention_prefill_cuda(q, k, v))
+    want = _attn_exact(q, k, v)
+    err, plain_err = _rel(got, want), _rel(_plain_attend(q, k, v), want)
+    assert err <= ATTN_REL_TOL and err <= plain_err + 1e-6, (err, plain_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h", [(1, 1000, 16), (2, 77, 4), (1, 1, 16)])
+def test_attention_prefill_latent_build_float32_matches_float64(cuda, b, t, h):
+    from repro_torch.kernels.attention import kernel
+
+    q, k, v = _latent_inputs(b, t, h, cuda, seed=t + 1, dtype=torch.float32)
+    got = kernel.attention_prefill_cuda(q, k, v)
+    assert got.shape == (b, t, h, 128) and got.dtype == torch.float32
+    assert torch.equal(got, kernel.attention_prefill_cuda(q, k, v))
+    assert _rel(got, _attn_exact(q, k, v, torch.float64)) <= ATTN_F32_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_prefill_latent_build_reads_v_in_place(cuda, dtype):
+    """v as latent attention leaves it: the value columns of W_kvb's
+    (B, T, H, 128 + 128) product, a strided view read with no copy; the
+    same bits as from a contiguous copy."""
+    from repro_torch.kernels.attention import kernel
+
+    b, t, h = 2, 300, 16
+    q, k, _ = _latent_inputs(b, t, h, cuda, dtype=dtype)
+    kv = torch.randn((b, t, h, 256), device=cuda).to(dtype)
+    v = kv[..., 128:]
+    assert not v.is_contiguous()
+    got = kernel.attention_prefill_cuda(q, k, v)
+    assert torch.equal(got, kernel.attention_prefill_cuda(q, k, v.contiguous()))
+    tol = ATTN_REL_TOL if dtype == torch.bfloat16 else ATTN_F32_REL_TOL
+    assert _rel(got, _attn_exact(q, k, v, torch.float64)) <= tol
+
+
+@pytest.mark.gpu
+def test_attention_prefill_wrapper_refuses_widths_it_has_no_build_for(cuda):
+    """Dv != Dqk only as latent attention's (192, 128); q and k of one
+    width; nothing launched."""
+    from repro_torch.kernels.attention import kernel
+
+    before = kernel.launches
+    for dqk, dv in ((192, 64), (128, 64), (64, 128), (192, 192), (176, 128)):
+        q, k, v = _latent_inputs(1, 16, 2, cuda, dqk=dqk, dv=dv)
+        with pytest.raises(ValueError, match="Dh in"):
+            kernel.attention_prefill_cuda(q, k, v)
+    q, k, v = _latent_inputs(1, 16, 2, cuda)
+    with pytest.raises(ValueError, match=r"\(B, T, Hkv, Dh\)"):
+        kernel.attention_prefill_cuda(q, k[..., :128].contiguous(), v)
+    with pytest.raises(ValueError, match=r"\(B, T, Hkv, Dh\)"):
+        kernel.attention_prefill_cuda(q, k, v[:, :8])
+    assert kernel.launches == before
+
+
+@pytest.mark.gpu
+def test_moonlight_float32_at_published_widths_matches_the_reference(cuda):
+    """Moonlight's published widths in float32, 4 layers (the dense one and
+    3 MoE), a prefill of 1 x 1,024 tokens through the fused kernel's float32
+    192/128 build, the exchange encrypted, then 3 decode steps through the
+    latent cache (the absorbed form): the port's logits for the prompt's
+    last token and every step, and every layer's latent cache, the prompt's
+    and the decoded tokens' entries, against the float32 reference within
+    1e-4. Both compute in float32 (TF32 off), apart only in the order of
+    their sums (3e-6 seen); a bf16 rounding anywhere would read ~3e-3 at
+    layer 0."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench import common
+    from bench.drivers import lm as lm_drv
+    from repro_torch import VirtualMesh
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    cs = common.cell_spec("moonlight-16b-a3b.secure_prefill")
+    cs["config"]["model"].update(n_layers=4, dtype="float32")
+    cs["traffic"].update(batch=1, prompt_tokens=1024)
+    cell = lm_drv.LMBase(cs, seed=2**31 + 5, device="cuda", rec=None)
+    cell.build(VirtualMesh(8, cuda))
+    t = 1024
+    toks = lm_drv.prompts(cell.m, cell.seed, "f32", 1, t + 3, cuda)
+    cache = init_cache(cell.cfg, 1, t + 3, cuda)
+    got = [prefill(cell.cfg, cell.model, toks[:, :t], cache, mesh=cell.mesh,
+                   secure_moe=cell.secure)]
+    for j in range(3):
+        got.append(decode_step(cell.cfg, cell.model, cache, toks[:, t + j:t + j + 1],
+                               mesh=cell.mesh))
+    cell.free_model()
+    kept = {}
+    want = cell.ref.forward(cell.weights(), cell.m, toks,
+                            logit_positions=list(range(t - 1, t + 3)), shards=cell.shards,
+                            prompt_len=t, cache_sink=kept.__setitem__,
+                            cache_layers=cell.m["n_layers"])
+    v = cell.m["vocab_size"]
+    for j in range(4):
+        assert lm_drv.rel_err(got[j][:, :v], want[:, j]) <= 1e-4, j
+    assert sorted(kept) == [0, 1, 2, 3]
+    for layer, tensors in kept.items():
+        for name, w in tensors.items():
+            assert lm_drv.rel_err(cache[name][layer], w) <= 1e-4, (layer, name)
+            assert lm_drv.rel_err(cache[name][layer][:, t:], w[:, t:]) <= 1e-4, (layer, name)
+
+
+@pytest.mark.gpu
+def test_moonlight_prefill_then_decode_at_published_widths_matches_the_reference(cuda):
+    """Moonlight-16B-A3B whole (27 layers, its published widths, bf16) on
+    the virtual mesh of 8 shards, the exchange encrypted, its weights the
+    benchmark's: a prefill of 1 x 1,024 tokens through the fused kernel's
+    192/128 build and 3 decode steps through the latent cache, against the
+    float32 reference's forward over the whole sequence. As the
+    secure_prefill cell checks (`bench/limits/`): the latent cache of the
+    layers the reference shows (`checked_layers`) within the cell's
+    `cache_rel_err`, and the decoded tokens' entries of the layers before
+    the first routed one alone as well. Past those layers bf16 parts from
+    float32 on near-tied expert choices, so the logits' values are held in
+    float32, at 4 layers, by the test above; here the prefill's last token
+    and every step within 0.95, a guard against gross faults alone (sound
+    bf16 reads 0.47-0.83 at the cell's size, the fp8 control 1.01-1.08,
+    another model's logits ~1.41)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from bench import common
+    from bench.drivers import lm as lm_drv
+    from repro_torch import VirtualMesh
+    from repro_torch.kernels import kernel_calls
+    from repro_torch.serve.engine import decode_step, init_cache, prefill
+
+    cell_name = "moonlight-16b-a3b.secure_prefill"
+    limit = json.loads((common.BENCH / "limits" / f"{cell_name}.json").read_text()
+                       )["numbers"]["cache_rel_err"]["limit"]
+    cs = common.cell_spec(cell_name)
+    cs["traffic"].update(batch=1, prompt_tokens=1024)
+    cell = lm_drv.LMBase(cs, seed=2**31 + 9, device="cuda", rec=None)
+    cell.build(VirtualMesh(8, cuda))
+    t = 1024
+    toks = lm_drv.prompts(cell.m, cell.seed, "card", 1, t + 3, cuda)
+    cache = init_cache(cell.cfg, 1, t + 3, cuda)
+    with kernel_calls.recording() as calls:
+        got = [prefill(cell.cfg, cell.model, toks[:, :t], cache, mesh=cell.mesh,
+                       secure_moe=cell.secure)]
+    assert calls["attention_prefill"] == 27 and calls["moe_dispatch"] == 26
+    for j in range(3):
+        got.append(decode_step(cell.cfg, cell.model, cache, toks[:, t + j:t + j + 1],
+                               mesh=cell.mesh))
+    cell.free_model()
+    weights = cell.weights()  # drawn again from the seed, the model's freed
+    kept = {}
+    want = cell.reference(toks, list(range(t - 1, t + 3)), weights=weights,
+                          cache_sink=kept.__setitem__)
+    v = cell.m["vocab_size"]
+    for j in range(4):
+        assert lm_drv.rel_err(got[j][:, :v].float(), want[:, j]) <= 0.95, j
+    dense = cell.m["first_dense_layers"]
+    assert sorted(kept) == list(range(dense + 2))
+    for layer, tensors in kept.items():
+        for name, w in tensors.items():
+            assert lm_drv.rel_err(cache[name][layer], w) <= limit, (layer, name)
+            if layer <= dense:
+                assert lm_drv.rel_err(cache[name][layer][:, t:], w[:, t:]) <= limit, \
+                    (layer, name)

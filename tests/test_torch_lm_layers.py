@@ -23,7 +23,7 @@ from repro.configs import get_config as jget
 from repro.models import attention as jattn
 from repro.models import layers as jl
 from repro.models import lm as jlm
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ALL_ARCH_IDS, ARCH_IDS, get_config
 from repro_torch.convert import lm_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tl
@@ -58,13 +58,26 @@ def close(got, want, **tol):
 
 
 def test_config_registry_is_the_reference_copy():
+    """The reference's ten configs field for field; the port's own fields
+    (latent attention, the biased router, a dense first layer, a separate
+    head, the norm's eps) at their defaults, which change nothing."""
+    from dataclasses import fields
+
+    from repro_torch.configs import PORT_ARCH_IDS, ArchConfig
+
     assert ARCH_IDS == list(__import__("repro.configs", fromlist=["ARCH_IDS"]).ARCH_IDS)
+    defaults = {f.name: f.default for f in fields(ArchConfig)}
     for arch in ARCH_IDS:
         mine, ref = get_config(arch), jget(arch)
-        assert mine.__dict__ == ref.__dict__
-        assert mine.reduced().__dict__ == ref.reduced().__dict__
+        own = set(mine.__dict__) - set(ref.__dict__)
+        assert own == {"attention", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                       "v_head_dim", "first_dense_layers", "router",
+                       "routed_scaling", "shared_expert_gate", "separate_head", "norm_eps"}
+        for a, b in ((mine, ref), (mine.reduced(), ref.reduced())):
+            assert {k: v for k, v in a.__dict__.items() if k not in own} == b.__dict__
+            assert {k: a.__dict__[k] for k in own} == {k: defaults[k] for k in own}
         assert (mine.head_dim, mine.padded_vocab) == (ref.head_dim, ref.padded_vocab)
-    assert len(SERVED) == 7
+    assert len(SERVED) == 7 and PORT_ARCH_IDS == ["moonlight-16b-a3b"]
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
@@ -260,7 +273,7 @@ def test_lm_params_loads_the_reference_tree():
         lm_params(cfg, params, 3)
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", ALL_ARCH_IDS)
 def test_every_arch_inits_caches_and_prefills(arch):
     """Every config of the registry, reduced: `init_params`, `init_cache`
     and one `prefill` (with seeded frames for audio) on the CPU give finite
